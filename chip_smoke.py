@@ -5,21 +5,35 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. build   — print the card (``nvidia-smi``) and build the CUDA kernels
-             from ``src/repro_torch/kernels/csrc`` with nvcc;
-2. kernels — hold both kernels, and their B=1 launches, against their
-             plain PyTorch versions on the card at full width (B=32,
-             Lq=32, C=200, Ld=180, d=128, K=131072; nbits 4 and 2;
-             ragged valid and cmask, k > C, empty C); fused must equal
-             split bit for bit;
+1. build   — print the card (``nvidia-smi``) and build the four CUDA
+             kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
+2. kernels — hold decompress_maxsim and fused_rerank, and their B=1
+             launches, against their plain PyTorch versions on the card
+             at full width (B=32, Lq=32, C=200, Ld=180, d=128, K=131072;
+             nbits 4 and 2; ragged valid and cmask, k > C, empty C);
+             fused must equal split bit for bit. Then MaxSim over fp32
+             embeddings at the same width (ragged validity, an
+             all-invalid doc) against its plain version, and bit for bit
+             against decompress_maxsim on the decoded embeddings;
 3. index   — write a synthetic index at full width (d=128, nbits=4,
              doc_maxlen=180, K=131072, SPLADE vocab 30522) with
-             ``write_index`` and ``SpladeIndex.save``, 100,000 docs;
+             ``write_index`` and ``SpladeIndex.save``, 100,000 docs; then
+             hold the SPLADE kernel against its plain version on the
+             index's own padded postings (32 queries of 12 terms), its
+             top-k against the host scorer bit for bit, and its edge
+             cases (repeated pids in a row, all-zero weights, k > n_docs,
+             a ragged last doc block, truncated postings, an
+             out-of-vocabulary id);
 4. serve   — serve 64 mixed splade/rerank/hybrid requests through
-             ``RetrievalServer`` on ``cuda`` with max_batch=32, hold every
-             answer against an engine built with ``device="cpu"`` over the
-             same directory, and check that both kernels were launched;
-5. time    — time each kernel with CUDA events at the serve shapes.
+             ``RetrievalServer`` on ``cuda`` with max_batch=32, once with
+             the host stage 1 and once with ``splade_backend="device"``;
+             hold every answer of both against an engine built with
+             ``device="cpu"`` over the same directory, check in each run
+             that the kernels of its path were launched, and that the
+             device stage 1 equals the host's bit for bit on the
+             requests' terms;
+5. time    — time each kernel with CUDA events at the serve shapes, and
+             each at B=1.
 
 Arithmetic is IEEE fp32: TF32 is switched off for matmuls and cuDNN.
 The last line of standard output is
@@ -115,6 +129,23 @@ def to_dev(arrs: dict, device) -> dict:
     return {k: torch.as_tensor(v, device=device) for k, v in arrs.items()}
 
 
+def sub_rng(seed: int, phase: str):
+    """A generator of its own for a phase added after the first slice,
+    so the earlier phases keep drawing the same inputs from ``--seed``."""
+    return np.random.default_rng([seed, sum(map(ord, phase))])
+
+
+def maxsim_inputs(rng, s: Shapes, device):
+    """The tile kernels' inputs at the serve shapes (nbits=4) plus their
+    decoded fp32 embeddings (B, C, Ld, d), and one all-invalid doc."""
+    from repro_torch.index.residual import decode_embeddings
+    x = to_dev(kernel_inputs(rng, s, 4), device)
+    x["valid"][1, 5] = False
+    x["emb"] = decode_embeddings(x["packed"], x["cids"], x["centroids"],
+                                 x["bw"], 4)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -203,6 +234,38 @@ def check_kernels(rng, s: Shapes, device) -> dict:
     return err
 
 
+def check_maxsim(rng, s: Shapes, device) -> float:
+    """MaxSim over fp32 embeddings at full width: against its plain
+    version (tolerance: the plain version sums through cuBLAS), and bit
+    for bit against decompress_maxsim on the embeddings it decodes.
+    Returns the largest |kernel - plain|."""
+    import torch
+    from repro_torch.kernels.decompress_maxsim.ops import (
+        decompress_maxsim_scores_batch as dms)
+    from repro_torch.kernels.maxsim.ops import (maxsim_scores,
+                                                maxsim_scores_batch)
+    from repro_torch.kernels.maxsim.ref import maxsim_scores_ref
+    from repro_torch.testing import ATOL, RTOL
+
+    x = maxsim_inputs(rng, s, device)
+    got = maxsim_scores_batch(x["q"], x["emb"], x["valid"], x["q_valid"])
+    want = maxsim_scores_ref(x["q"], x["emb"], x["valid"], x["q_valid"])
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL, err_msg="maxsim")
+    assert got[1, 5].item() == 0.0, "an all-invalid doc must score 0"
+    split = dms(x["q"], x["packed"], x["cids"], x["valid"], x["centroids"],
+                x["bw"], nbits=4, q_valid=x["q_valid"])
+    assert torch.equal(got.view(torch.int32), split.view(torch.int32)), \
+        "maxsim on decoded embeddings != decompress_maxsim"
+    one = maxsim_scores(x["q"][3], x["emb"][3], x["valid"][3],
+                        x["q_valid"][3])
+    assert torch.equal(one, got[3]), "B=1 maxsim != batch row"
+    log(f"maxsim: max |err| {err:.3g}, == decompress_maxsim bit for bit")
+    return err
+
+
 # ---------------------------------------------------------------------------
 # phase 3: a synthetic index at full width
 # ---------------------------------------------------------------------------
@@ -251,6 +314,104 @@ def write_synthetic_index(rng, s: Shapes, out: pathlib.Path, nbits: int = 4):
     return n_tokens, topics
 
 
+def kernel_rows(cache, tids, tw):
+    """The SPLADE kernel's (term rows, scaled weights) for a batch of
+    queries, on the cache's device — what ``score_topk`` launches on."""
+    import torch
+    rows, w = cache.scaled_weights(*cache.pad_queries(list(tids), list(tw)))
+    return (torch.as_tensor(rows, device=cache.device),
+            torch.as_tensor(w, device=cache.device))
+
+
+def check_splade(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
+                 device) -> float:
+    """The SPLADE kernel on the index's own padded postings: against its
+    plain version on the card (atomics there: a tolerance) and on the
+    CPU (its order: bit for bit), and its top-k against the host scorer
+    bit for bit. Returns the largest |kernel - plain|."""
+    import torch
+    from repro_torch.index.splade_device import SpladeDeviceCache
+    from repro_torch.index.splade_index import SpladeIndex
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.splade_score.ops import (
+        splade_block_scores, splade_block_scores_batch,
+        splade_row_scores_batch)
+    from repro_torch.kernels.splade_score.ref import (
+        splade_row_scores_batch_ref)
+    from repro_torch.testing import ATOL, RTOL
+
+    index = SpladeIndex.load(path / "splade", mmap=True)
+    cache = SpladeDeviceCache(index, device=device)
+    block_d = _build.load().splade_score_block_docs()
+    log(f"splade cache: max_df {cache.max_df}, truncated_terms "
+        f"{cache.truncated_terms}, nbytes {cache.nbytes()}, n_docs "
+        f"{cache.n_docs} = {cache.n_docs // block_d} blocks of {block_d} "
+        f"+ {cache.n_docs % block_d}")
+    assert cache.truncated_terms == 0 and cache.n_docs % block_d
+    tids, tw = (list(a) for a in topic_terms(rng, topics, s.B,
+                                              s.query_terms))
+    tw[5] = np.zeros_like(tw[5])                     # an all-zero query
+    rows, w = kernel_rows(cache, tids, tw)
+
+    def against_plain(c, rows, w, what):
+        got = splade_row_scores_batch(c.pids, c.imps, rows, w,
+                                      n_docs=c.n_docs)
+        on_card = splade_row_scores_batch_ref(c.pids, c.imps, rows, w,
+                                              c.n_docs)
+        torch.cuda.synchronize()
+        e = (got - on_card).abs().max().item()
+        np.testing.assert_allclose(got.cpu().numpy(), on_card.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL, err_msg=what)
+        ordered = splade_row_scores_batch_ref(c.pids.cpu(), c.imps.cpu(),
+                                              rows.cpu(), w.cpu(), c.n_docs)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           ordered.view(torch.int32)), \
+            f"{what}: kernel != ordered plain version"
+        return got, e
+
+    got, err = against_plain(cache, rows, w, "splade serve batch")
+    assert torch.all(got[5] == 0), "an all-zero query must score 0"
+    one = splade_row_scores_batch(cache.pids, cache.imps, rows[2:3],
+                                  w[2:3], n_docs=cache.n_docs)
+    assert torch.equal(one[0], got[2]), "B=1 splade != batch row"
+    for k in (FULL.C, cache.n_docs + 5):             # k > n_docs pads
+        dp, ds = cache.score_topk(tids, tw, k)
+        hp, hs = index.score_batch_host(tids, tw, k)
+        assert np.array_equal(dp, hp), f"splade top-{k} pids != host"
+        assert np.array_equal(ds.view(np.uint32), hs.view(np.uint32)), \
+            f"splade top-{k} scores != host bits"
+    log(f"splade: max |err| {err:.3g}; top-{FULL.C} and the whole ranking "
+        "equal the host scorer bit for bit")
+
+    trunc = SpladeDeviceCache(index, max_df=64, device=device)
+    assert trunc.truncated_terms > 0
+    against_plain(trunc, rows, w, "splade max_df=64")
+    log(f"splade max_df=64: {trunc.truncated_terms} truncated terms, "
+        "kernel == plain")
+
+    # repeated pids inside a row, -1 pads, f32 impacts, a B=1 launch
+    pids = torch.as_tensor(rng.integers(-1, 40, (5, 16, 16), dtype=np.int32))
+    imps = torch.as_tensor(rng.random((5, 16, 16), np.float32))
+    pw = torch.as_tensor(rng.random((5, 16), np.float32))
+    got = splade_block_scores_batch(pids.to(device), imps.to(device),
+                                    pw.to(device), n_docs=700)
+    want = splade_block_scores_batch(pids, imps, pw, n_docs=700)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    one = splade_block_scores(pids[1].to(device), imps[1].to(device),
+                              pw[1].to(device), n_docs=700)
+    assert torch.equal(one, got[1])
+    try:
+        cache.score_topk([np.array([s.vocab + 3])], [np.ones(1, np.float32)],
+                         5)
+    except IndexError:
+        pass
+    else:
+        raise AssertionError("an out-of-vocabulary id must raise")
+    log("splade edge cases: repeated pids, all-zero weights, k > n_docs, "
+        "ragged last block, truncation, out-of-vocabulary id")
+    return err
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve
 # ---------------------------------------------------------------------------
@@ -284,41 +445,82 @@ def make_requests(rng, s: Shapes, topics: np.ndarray, n: int,
     return reqs
 
 
-def serve(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
-          device) -> dict:
-    from repro_torch.kernels.decompress_maxsim.ops import (
-        decompress_maxsim_scores_batch as dms)
-    from repro_torch.kernels.fused_rerank.ops import (
-        fused_rerank_topk_batch as frk)
-    from repro_torch.serving.engine import ServeEngine
+def serve_run(engine, warm, reqs, s: Shapes, counted: dict):
+    """Serve ``reqs`` through a ``RetrievalServer`` over ``engine`` after
+    a warm-up batch, with every counter of ``counted`` (name → wrapper)
+    set to 0 just before the requests and read just after."""
     from repro_torch.serving.server import RetrievalServer
-    from repro_torch.testing import REF_MARGIN, assert_topk_match
 
-    engine = ServeEngine(make_retriever(path, device))
-    engine.process_batch(make_requests(rng, s, topics, 6, qid0=10_000))
-    reqs = make_requests(rng, s, topics, s.n_requests)
+    engine.process_batch(warm)
     server = RetrievalServer(engine, max_batch=s.B, batch_timeout_ms=5.0)
     server.start()
     try:
         engine.retriever.reset_stage_stats()
-        dms.launches = frk.launches = 0
+        for fn in counted.values():
+            fn.launches = 0
         t0 = time.perf_counter()
         futs = [server.submit(r) for r in reqs]
         results = [f.result(timeout=600) for f in futs]
         wall = time.perf_counter() - t0
-        launches = {"decompress_maxsim": dms.launches,
-                    "fused_rerank": frk.launches}
+        launches = {n: fn.launches for n, fn in counted.items()}
         health = server.health()
     finally:
         server.stop()
-    log(f"served {len(results)} requests in {wall:.3f} s, "
-        f"{health['batches']} batches; launches {launches}")
-    if health["failed"] or health["served"] != len(reqs) + 6:
+    if health["failed"] or health["served"] != len(reqs) + len(warm):
         raise RuntimeError(f"server health: {health}")
-    for name, n in launches.items():
-        if n == 0:
-            raise RuntimeError(f"kernel {name} was never launched while "
-                               "serving")
+    lat = np.array([r.latency for r in results]) * 1e3
+    stages = {n: r["wall_s"] for n, r in health["stages"].items()}
+    return results, {
+        "requests": len(results), "batches": health["batches"],
+        "qps": len(results) / wall,
+        "p50_ms": float(np.percentile(lat, 50)),
+        "p99_ms": float(np.percentile(lat, 99)),
+        "splade_stage1_s": stages["splade_stage1"], "stage_wall_s": stages,
+        "launches": launches,
+        "launches_per_batch": {n: c / health["batches"]
+                               for n, c in launches.items()}}
+
+
+def serve(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
+          device) -> dict:
+    """Serve the same 64 requests with the host and with the device
+    stage 1, in turns (host, device, device, host, so that the two are
+    compared inside one call); every run's answers are held to one CPU
+    reference. → {backend: [run line, run line]}."""
+    from repro_torch.kernels.decompress_maxsim.ops import (
+        decompress_maxsim_scores_batch as dms)
+    from repro_torch.kernels.fused_rerank.ops import (
+        fused_rerank_topk_batch as frk)
+    from repro_torch.kernels.maxsim.ops import maxsim_scores_batch
+    from repro_torch.kernels.splade_score.ops import splade_row_scores_batch
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.testing import REF_MARGIN, assert_topk_match
+
+    counted = {"decompress_maxsim": dms, "fused_rerank": frk,
+               "splade_score": splade_row_scores_batch,
+               "maxsim": maxsim_scores_batch}
+    # the kernels each path must launch
+    paths = {"host": ("decompress_maxsim", "fused_rerank"),
+             "device": ("splade_score", "decompress_maxsim",
+                        "fused_rerank")}
+    retriever = make_retriever(path, device)
+    warm = make_requests(rng, s, topics, 6, qid0=10_000)
+    reqs = make_requests(rng, s, topics, s.n_requests)
+    runs = []
+    for backend in ("host", "device", "device", "host"):
+        engine = ServeEngine(retriever, splade_backend=backend)
+        results, line = serve_run(engine, warm, reqs, s, counted)
+        runs.append((backend, results, line))
+        launches = line["launches"]
+        log(f"served {len(results)} requests with the {backend} stage 1 in "
+            f"{line['requests'] / line['qps']:.3f} s, {line['batches']} "
+            f"batches; launches {launches}")
+        for name in paths[backend]:
+            if launches[name] == 0:
+                raise RuntimeError(f"kernel {name} was never launched while "
+                                   f"serving with the {backend} stage 1")
+        if backend == "host" and launches["splade_score"]:
+            raise RuntimeError("the host stage 1 launched the SPLADE kernel")
 
     # the reference answers REF_MARGIN places deeper, so that ties at
     # each answer's last place are visible
@@ -327,22 +529,24 @@ def serve(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
     want = []
     for lo in range(0, len(deeper), s.B):
         want += ref_engine.process_batch(deeper[lo:lo + s.B])
-    for res, ref, req in zip(results, want, reqs):
-        assert res.qid == ref.qid == req.qid
-        assert_topk_match(ref.scores, ref.pids, res.scores, res.pids,
-                          what=f"qid {req.qid} {req.method} k={req.k}")
-    log("every served answer matches the CPU engine")
+    for backend, results, _ in runs:
+        for res, ref, req in zip(results, want, reqs):
+            assert res.qid == ref.qid == req.qid
+            assert_topk_match(ref.scores, ref.pids, res.scores, res.pids,
+                              what=f"{backend} stage 1: qid {req.qid} "
+                                   f"{req.method} k={req.k}")
+    log(f"every answer of all {len(runs)} runs matches the CPU engine")
 
-    lat = np.array([r.latency for r in results]) * 1e3
-    per_batch = {n: c / health["batches"] for n, c in launches.items()}
-    return {"launches": launches, "launches_per_batch": per_batch,
-            "serve": {"phase": "serve", "requests": len(results),
-                      "batches": health["batches"],
-                      "qps": len(results) / wall,
-                      "p50_ms": float(np.percentile(lat, 50)),
-                      "p99_ms": float(np.percentile(lat, 99)),
-                      "stage_wall_s": {n: r["wall_s"] for n, r in
-                                       health["stages"].items()}}}
+    tids = [r.term_ids for r in reqs]
+    tw = [r.term_weights for r in reqs]
+    dp, ds = retriever.run_splade_batch(tids, tw, backend="device")
+    hp, hs = retriever.run_splade_batch(tids, tw, backend="host")
+    assert np.array_equal(dp, hp) and np.array_equal(
+        ds.view(np.uint32), hs.view(np.uint32)), \
+        "device stage 1 != host stage 1 on the served requests"
+    log(f"device stage 1 == host stage 1 bit for bit on the {len(reqs)} "
+        "requests")
+    return {b: [line for b2, _, line in runs if b2 == b] for b in paths}
 
 
 # ---------------------------------------------------------------------------
@@ -389,8 +593,52 @@ def bound(x: dict, s: Shapes, peaks, fused: bool) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_kernels(rng, s: Shapes, device, peaks) -> dict:
+def rows_of(x: dict, b: int) -> dict:
+    """Batch row ``b`` of the tile inputs as a batch of one (the tables
+    stay whole)."""
+    return {k: v if k in ("centroids", "bw") else v[b:b + 1]
+            for k, v in x.items()}
+
+
+def splade_bound(cache, rows, w, peaks) -> tuple[float, str]:
+    """Bytes: the real postings of the queried rows (4-byte pid and
+    1-byte impact each, padding not counted), the (rows, weights) slots
+    and the (B, n_docs) f32 scores written; operations: one multiply
+    and one add per real posting, at the fp32 peak."""
+    flops_peak, bw_peak = peaks
+    live = (rows >= 0) & (w > 0)
+    r = rows[live].long()
+    entries = (cache.pids[r] >= 0).sum().item()
+    n_bytes = entries * 5 + rows.numel() * 8 + rows.shape[0] * cache.n_docs * 4
+    t_bytes, t_ops = n_bytes / bw_peak, 2 * entries / flops_peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def maxsim_bound(x: dict, s: Shapes, peaks) -> tuple[float, str]:
+    """Bytes: the fp32 rows of the valid doc tokens, the valid flags,
+    the query and its flags, the (B, C) output; operations: 2·d FLOPs
+    per (real query token, valid doc token) pair, at the fp32 peak."""
+    flops_peak, bw_peak = peaks
+    n_tok = x["valid"].sum(dim=(1, 2)).double()
+    q_real = x["q_valid"].sum(dim=1).double()
+    B, C = x["valid"].shape[:2]
+    n_bytes = (n_tok.sum().item() * s.d * 4 + x["valid"].numel()
+               + x["q"].numel() * 4 + x["q_valid"].numel() + B * C * 4)
+    flops = (n_tok * q_real).sum().item() * 2 * s.d
+    t_bytes, t_ops = n_bytes / bw_peak, flops / flops_peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_kernels(rng, s: Shapes, device, peaks, path: pathlib.Path,
+                 topics: np.ndarray, seed: int) -> dict:
+    """CUDA-event times of each kernel, its plain version and (where one
+    PyTorch call computes the same function) that call, at the serve
+    shapes (batch) and for one query of them (b1)."""
     import torch
+    from repro_torch.index.splade_device import SpladeDeviceCache
+    from repro_torch.index.splade_index import SpladeIndex
     from repro_torch.kernels.decompress_maxsim.ops import (
         decompress_maxsim_scores_batch as dms)
     from repro_torch.kernels.decompress_maxsim.ref import (
@@ -398,25 +646,95 @@ def time_kernels(rng, s: Shapes, device, peaks) -> dict:
     from repro_torch.kernels.fused_rerank.ops import (
         fused_rerank_topk_batch as frk)
     from repro_torch.kernels.fused_rerank.ref import fused_rerank_ref
+    from repro_torch.kernels.maxsim.ops import maxsim_scores_batch
+    from repro_torch.kernels.maxsim.ref import maxsim_scores_ref
+    from repro_torch.kernels.splade_score.ops import splade_row_scores_batch
+    from repro_torch.kernels.splade_score.ref import (
+        splade_row_scores_batch_ref)
 
+    def tile(x, fused):
+        t = (x["q"], x["packed"], x["cids"], x["valid"])
+        tables = (x["centroids"], x["bw"])
+        if fused:
+            return {
+                "ms": lambda: frk(*t, x["cmask"], *tables, nbits=4, k=100,
+                                  q_valid=x["q_valid"]),
+                "plain": lambda: fused_rerank_ref(*t, x["cmask"], *tables, 4,
+                                                  100, x["q_valid"])}
+        return {"ms": lambda: dms(*t, *tables, nbits=4, q_valid=x["q_valid"]),
+                "plain": lambda: decompress_maxsim_ref(*t, *tables, 4,
+                                                       x["q_valid"])}
+
+    def measure(fns, bound_fn, library=None):
+        # in turns — plain, kernel, library, library, kernel, plain — so
+        # that drift on the card does not favour one of them; each
+        # number is the mean of its two turns, both turns are kept
+        order = [("plain_ms", fns["plain"], 10), ("ms", fns["ms"], 20)]
+        if library is not None:
+            order.append(("library_ms", library, 20))
+        turns = {name: [] for name, _, _ in order}
+        for name, fn, iters in order + order[::-1]:
+            turns[name].append(cuda_time_ms(fn, iters))
+        out = {name: sum(t) / len(t) for name, t in turns.items()}
+        out.setdefault("library_ms", None)
+        return dict(out, turns=turns, bound=bound_fn())
+
+    out = {}
     x = to_dev(kernel_inputs(rng, s, 4), device)
-    tile = (x["q"], x["packed"], x["cids"], x["valid"])
-    tables = (x["centroids"], x["bw"])
-    qv, cm = x["q_valid"], x["cmask"]
-    out = {
-        "decompress_maxsim": {
-            "ms": cuda_time_ms(lambda: dms(*tile, *tables, nbits=4,
-                                           q_valid=qv), 20),
-            "plain_ms": cuda_time_ms(lambda: decompress_maxsim_ref(
-                *tile, *tables, 4, qv), 5, warmup=1),
-            "bound": bound(x, s, peaks, fused=False)},
-        "fused_rerank": {
-            "ms": cuda_time_ms(lambda: frk(*tile, cm, *tables, nbits=4,
-                                           k=100, q_valid=qv), 20),
-            "plain_ms": cuda_time_ms(lambda: fused_rerank_ref(
-                *tile, cm, *tables, 4, 100, qv), 5, warmup=1),
-            "bound": bound(x, s, peaks, fused=True)},
-    }
+    x1 = rows_of(x, 3)
+    out["decompress_maxsim"] = {
+        "batch": measure(tile(x, False), lambda: bound(x, s, peaks, False)),
+        "b1": measure(tile(x1, False), lambda: bound(x1, s, peaks, False))}
+    out["fused_rerank"] = {
+        "batch": measure(tile(x, True), lambda: bound(x, s, peaks, True)),
+        "b1": measure(tile(x1, True), lambda: bound(x1, s, peaks, True))}
+    del x, x1
+
+    m = maxsim_inputs(sub_rng(seed, "maxsim timing"), s, device)
+    m1 = rows_of(m, 3)
+
+    def maxsim_fns(m):
+        args = (m["q"], m["emb"], m["valid"], m["q_valid"])
+        return {"ms": lambda: maxsim_scores_batch(*args),
+                "plain": lambda: maxsim_scores_ref(*args)}
+
+    out["maxsim"] = {
+        "batch": measure(maxsim_fns(m), lambda: maxsim_bound(m, s, peaks)),
+        "b1": measure(maxsim_fns(m1), lambda: maxsim_bound(m1, s, peaks))}
+    del m, m1
+
+    cache = SpladeDeviceCache(SpladeIndex.load(path / "splade", mmap=True),
+                              device=device)
+    srng = sub_rng(seed, "splade timing")
+    rows, w = kernel_rows(cache, *topic_terms(srng, topics, s.B,
+                                              s.query_terms))
+
+    def splade_fns(rows, w):
+        args = (cache.pids, cache.imps, rows, w)
+        # the single PyTorch call that computes the same function: one
+        # index_add_ of the masked entries into the flattened scores
+        B = rows.shape[0]
+        live = (rows >= 0) & (w > 0)
+        safe = torch.where(live, rows, 0).long()
+        pids = cache.pids[safe].long()
+        keep = live[..., None] & (pids >= 0)
+        target = (torch.arange(B, device=device).view(B, 1, 1)
+                  * cache.n_docs + pids)[keep]
+        vals = (w[..., None] * cache.imps[safe].float())[keep]
+        scores = torch.zeros(B * cache.n_docs, device=device)
+        return ({"ms": lambda: splade_row_scores_batch(
+                    *args, n_docs=cache.n_docs),
+                 "plain": lambda: splade_row_scores_batch_ref(
+                    *args, cache.n_docs)},
+                lambda: scores.index_add_(0, target, vals))
+
+    fns, lib = splade_fns(rows, w)
+    fns1, lib1 = splade_fns(rows[2:3], w[2:3])
+    out["splade_score"] = {
+        "batch": measure(fns, lambda: splade_bound(cache, rows, w, peaks),
+                         library=lib),
+        "b1": measure(fns1, lambda: splade_bound(cache, rows[2:3], w[2:3],
+                                                 peaks), library=lib1)}
     return out
 
 
@@ -445,7 +763,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     s = FULL
 
-    t0 = time.perf_counter()
+    t_all = t0 = time.perf_counter()
     _build.load()
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s "
         f"({_build.library_path().name})")
@@ -457,6 +775,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     err = check_kernels(rng, s, device)
+    err["maxsim"] = check_maxsim(sub_rng(args.seed, "maxsim"), s, device)
     log(f"phase 2 kernels vs plain: {time.perf_counter() - t0:.1f} s")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -466,12 +785,16 @@ def main(argv=None) -> int:
         log(f"phase 3 index: {s.n_docs} docs, {n_tokens} tokens, "
             f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+        err["splade_score"] = check_splade(sub_rng(args.seed, "splade"), s,
+                                           path, topics, device)
+        log(f"phase 3 splade kernel vs plain: "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         served = serve(rng, s, path, topics, device)
         log(f"phase 4 serve: {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    times = time_kernels(rng, s, device, peaks)
-    log(f"phase 5 timing: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        times = time_kernels(rng, s, device, peaks, path, topics, args.seed)
+        log(f"phase 5 timing: {time.perf_counter() - t0:.1f} s")
 
     name, limit = (p.strip() for p in card.split(",", 1))
     sources = {
@@ -481,25 +804,45 @@ def main(argv=None) -> int:
         "fused_rerank": (
             "src/repro_torch/kernels/csrc/fused_rerank.cu",
             "src/repro/kernels/fused_rerank/fused_rerank.py:144"),
+        "splade_score": (
+            "src/repro_torch/kernels/csrc/splade_score.cu",
+            "src/repro/kernels/splade_score/splade_score.py:97"),
+        "maxsim": (
+            "src/repro_torch/kernels/csrc/maxsim.cu",
+            "src/repro/kernels/maxsim/maxsim.py:83"),
     }
+    # launches on the newest main path: serving with the device stage 1
+    launches = served["device"][0]["launches"]
     kernels = []
     for kname, (src, replaces) in sources.items():
-        t = times[kname]
+        for at in ("batch", "b1"):
+            t = times[kname][at]
+            bound_ms, bound_by = t["bound"]
+            print(json.dumps({
+                "kernel": kname, "at": at, "kernel_ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": t["library_ms"],
+                "turns_ms": t["turns"],
+                "launches_per_batch": {
+                    b: served[b][0]["launches_per_batch"][kname]
+                    for b in served},
+                "shapes": dataclasses.asdict(s) if at == "batch"
+                else dict(dataclasses.asdict(s), B=1),
+                "card": name, "power_limit": limit}), flush=True)
+        t = times[kname]["batch"]
         bound_ms, bound_by = t["bound"]
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": served["launches"][kname],
+            "replaces": replaces, "launches": launches[kname],
             "max_abs_err": err[kname], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None})
-        print(json.dumps({
-            "kernel": kname, "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "launches_per_batch": served["launches_per_batch"][kname],
-            "shapes": dataclasses.asdict(s), "card": name,
-            "power_limit": limit}), flush=True)
-    print(json.dumps(dict(served["serve"], card=name, power_limit=limit)),
-          flush=True)
+            "bound_by": bound_by, "library_ms": t["library_ms"]})
+    for backend, lines in served.items():
+        print(json.dumps({"phase": "serve", "splade_backend": backend,
+                          "runs": lines, "card": name,
+                          "power_limit": limit}), flush=True)
+    log(f"chip_smoke wall, build included: "
+        f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,11 @@ ported yet):
   * ``rerank``   — SPLADE top-``first_k`` → MMAP ColBERT exact rescoring
   * ``hybrid``   — rerank + α-interpolated z-normed score fusion
 
-Stage 1 scores on the host CSR index; the residual gather runs on the
-host from the memory-mapped pool; the stage-4 tail runs on the
-searcher's device through the CUDA kernels.
+Stage 1 scores on the host CSR index (``splade_backend="host"``) or on
+the device from padded postings through the SPLADE kernel
+(``"device"``); the residual gather runs on the host from the
+memory-mapped pool; the stage-4 tail runs on the searcher's device
+through the CUDA kernels.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from repro_torch.common import resolve_device
 from repro_torch.core import hybrid as hybrid_mod
 from repro_torch.core.plaid import PLAIDSearcher, pad_query_batch_host
+from repro_torch.index.splade_device import SpladeDeviceCache
 from repro_torch.index.splade_index import SpladeIndex
 from repro_torch.serving.pipeline import (
     DEVICE,
@@ -34,8 +37,19 @@ from repro_torch.serving.pipeline import (
     StagePlan,
 )
 
+# "device" is the counterpart of the JAX package's "pallas" stage 1; its
+# "jax" backend (a plain segment-sum on the device) has none here
+SPLADE_BACKENDS = ("host", "device")
 RERANK_BACKENDS = ("fused", "split")
 METHODS = ("splade", "rerank", "hybrid")
+
+
+def check_splade_backend(backend: str) -> str:
+    if backend not in SPLADE_BACKENDS:
+        raise ValueError(f"splade backend {backend!r} not in "
+                         f"{SPLADE_BACKENDS} (the device stage 1 is "
+                         "'device')")
+    return backend
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +58,8 @@ class MultiStageParams:
     k: int = 100                  # final depth
     alpha: float = 0.3            # paper's MS MARCO-tuned value
     normalizer: str = "znorm"
+    splade_backend: str = "host"  # stage-1 scorer: host | device
+    splade_max_df: Optional[int] = None  # padded-postings df cap (None=exact)
     rerank_backend: str = "fused"  # stage-4 tail: fused | split
 
 
@@ -51,8 +67,8 @@ class MultiStageRetriever:
     def __init__(self, splade_index: SpladeIndex, searcher: PLAIDSearcher,
                  params: MultiStageParams = MultiStageParams(),
                  device="cuda"):
-        """``device`` is where stage 4 runs; the searcher must already
-        hold its tables there."""
+        """``device`` is where stage 4 (and a ``device`` stage 1) runs;
+        the searcher must already hold its tables there."""
         self.device = resolve_device(device)
         if searcher.device != self.device:
             raise ValueError(f"searcher is on {searcher.device}, retriever "
@@ -63,10 +79,21 @@ class MultiStageRetriever:
         self.splade = splade_index
         self.searcher = searcher
         self.params = params
+        self._splade_device: Optional[SpladeDeviceCache] = None
         self._lock = threading.Lock()
         self._plans: dict = {}
         self.pipeline_stats = PipelineStats()
+        self.set_splade_backend(params.splade_backend)
         self.set_rerank_backend(params.rerank_backend)
+        if params.splade_backend != "host":
+            self.splade_device_cache()    # pay the transfer up front
+
+    def set_splade_backend(self, backend: str):
+        """Stage-1 scorer: ``host`` (numpy CSR pass) or ``device`` (the
+        SPLADE kernel over padded postings on this retriever's device).
+        With untruncated postings both give the same candidates and
+        scores bit for bit."""
+        self.splade_backend = check_splade_backend(backend)
 
     def set_rerank_backend(self, backend: str):
         """Stage-4 tail selection: ``fused`` runs exact scoring, masking
@@ -79,16 +106,34 @@ class MultiStageRetriever:
                              f"{RERANK_BACKENDS}")
         self.rerank_backend = backend
 
+    def splade_device_cache(self) -> SpladeDeviceCache:
+        """Padded-postings device tensors, materialised once and reused
+        by every ``device`` stage-1 launch (locked: concurrent server
+        workers must not each pay the host→device transfer)."""
+        with self._lock:
+            if self._splade_device is None:
+                self._splade_device = SpladeDeviceCache(
+                    self.splade, max_df=self.params.splade_max_df,
+                    device=self.device)
+            return self._splade_device
+
     def reset_stage_stats(self):
         self.pipeline_stats.reset()
 
     # ------------------------------------------------------------------
     def run_splade_batch(self, term_ids, term_weights,
-                         k: Optional[int] = None):
-        """Stage 1 for a whole micro-batch: one vectorised host CSR pass.
-        → (pids (B, k) int64 −1 padded, scores (B, k) f32)."""
+                         k: Optional[int] = None,
+                         backend: Optional[str] = None):
+        """Stage 1 for a whole micro-batch: one vectorised host CSR pass
+        (``host``) or one SPLADE kernel launch and a device top-k
+        (``device``); ``backend`` defaults to the retriever's. → host
+        (pids (B, k) int64 −1 padded, scores (B, k) f32)."""
+        backend = check_splade_backend(backend or self.splade_backend)
         k = self.params.first_k if k is None else k
-        return self.splade.score_batch_host(term_ids, term_weights, k)
+        if backend == "host":
+            return self.splade.score_batch_host(term_ids, term_weights, k)
+        return self.splade_device_cache().score_topk(term_ids,
+                                                     term_weights, k)
 
     def search(self, method: str, q_emb=None, term_ids=None,
                term_weights=None, alpha: Optional[float] = None,
@@ -120,11 +165,11 @@ class MultiStageRetriever:
                               alphas=alphas)
 
     def compile_plan(self, method: str) -> StagePlan:
-        """The method's typed stage graph, cached per (method, rerank
-        backend)."""
+        """The method's typed stage graph, cached per (method, stage-1
+        backend, rerank backend)."""
         if method not in METHODS:
             raise ValueError(f"method {method!r} not in {METHODS}")
-        key = (method, self.rerank_backend)
+        key = (method, self.splade_backend, self.rerank_backend)
         with self._lock:
             plan = self._plans.get(key)
             if plan is None:
@@ -138,10 +183,14 @@ class MultiStageRetriever:
         p = self.params
         searcher = self.searcher
         access = searcher.index.store.stats
+        backend = self.splade_backend
+        s1_kind = HOST if backend == "host" else DEVICE
 
         def splade_stage(cb):
+            # both backends return host arrays
             pids_b, s_scores = self.run_splade_batch(
-                list(cb.term_ids), list(cb.term_weights), p.first_k)
+                list(cb.term_ids), list(cb.term_weights), p.first_k,
+                backend=backend)
             return cb.with_state(pids_b=pids_b, s_scores=s_scores)
 
         if method == "splade":
@@ -150,7 +199,7 @@ class MultiStageRetriever:
                 return cb.evolve(pids=s["pids_b"][:, :cb.k],
                                  scores=s["s_scores"][:, :cb.k])
 
-            stages = (Stage("splade_stage1", HOST, splade_stage),
+            stages = (Stage("splade_stage1", s1_kind, splade_stage),
                       Stage("fuse_splade", HOST, fuse_splade))
             return StagePlan(method=method, stages=stages,
                              access_stats=access)
@@ -223,7 +272,7 @@ class MultiStageRetriever:
                           opens_async=True, device_dispatches=1),
                     Stage("fuse_topk", DEVICE, fuse_split,
                           closes_async=True, device_dispatches=0))
-        stages = (Stage("splade_stage1", HOST, splade_stage),
+        stages = (Stage("splade_stage1", s1_kind, splade_stage),
                   Stage("host_gather:residuals", HOST, gather)) + tail
         return StagePlan(method=method, stages=stages, access_stats=access)
 

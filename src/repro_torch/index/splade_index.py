@@ -156,6 +156,27 @@ class SpladeIndex:
         return pids, top
 
     # ------------------------------------------------------------------
+    def as_padded(self, max_df: int):
+        """Fixed-shape postings for the device stage 1: (V, max_df) pids
+        (−1 fill) + impacts, each term's postings in CSR order. Terms
+        with df > max_df keep their top-impact postings (a documented
+        approximation: the device scores are then a lower bound)."""
+        V = self.vocab
+        pids = np.full((V, max_df), -1, np.int32)
+        imps = np.zeros((V, max_df), np.uint8)
+        for t in range(V):
+            s, e = self.term_offsets[t], self.term_offsets[t + 1]
+            if e <= s:
+                continue
+            p, i = self.pids[s:e], self.impacts[s:e]
+            if e - s > max_df:
+                keep = np.argpartition(i, -(max_df))[-max_df:]
+                p, i = p[keep], i[keep]
+            pids[t, :len(p)] = p
+            imps[t, :len(p)] = i
+        return pids, imps
+
+    # ------------------------------------------------------------------
     def save(self, path):
         path = pathlib.Path(path)
         path.mkdir(parents=True, exist_ok=True)

@@ -29,7 +29,7 @@ decompress_maxsim_kernel(rt::TileArgs a, float* __restrict__ out) {
   const int b = blockIdx.y;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const rt::TileSmem s = rt::carve_smem(smem, a, kWarps, warp);
+  const rt::TileSmem s = rt::carve_smem(smem, a.Lq, a.d, kWarps, warp);
   rt::load_row(a, b, s);
   __syncthreads();
   const int c = blockIdx.x * kWarps + warp;

@@ -32,7 +32,7 @@ fused_rerank_kernel(rt::TileArgs a, const uint8_t* __restrict__ cmask, int kk,
   const int b = blockIdx.x;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const rt::TileSmem s = rt::carve_smem(smem, a, kWarps, warp);
+  const rt::TileSmem s = rt::carve_smem(smem, a.Lq, a.d, kWarps, warp);
   float* scores = s.extra;  // (C,)
   rt::load_row(a, b, s);
   __syncthreads();

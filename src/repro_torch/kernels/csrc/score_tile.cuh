@@ -1,12 +1,16 @@
-// Shared tile body of the decompress+MaxSim and fused rerank kernels.
+// Shared tile body of the decompress+MaxSim, fused rerank and MaxSim
+// kernels.
 //
 // Counterpart of `_score_tile` in the JAX package
 // (src/repro/kernels/decompress_maxsim/decompress_maxsim.py:64), which
-// both TPU kernels call. Both CUDA kernels score a candidate with
-// `score_candidate` below, so per-candidate arithmetic — decode order,
-// dot-product order over d, the per-query-token max and the ascending
-// sum over query tokens — is identical in both, and the fused rerank
-// tail equals the split tail bit for bit.
+// both compressed-candidate TPU kernels call. Those two CUDA kernels
+// score a candidate with `score_candidate` below, so per-candidate
+// arithmetic — decode order, dot-product order over d, the
+// per-query-token max and the ascending sum over query tokens — is
+// identical in both, and the fused rerank tail equals the split tail
+// bit for bit. The MaxSim kernel over fp32 embeddings stages each raw
+// token in place of the decode and shares `token_max` and `query_sum`,
+// so on decoded embeddings it equals decompress+MaxSim bit for bit.
 //
 // One warp scores one candidate. For each valid doc token the warp
 // decodes the token into a d-float shared-memory buffer
@@ -41,7 +45,7 @@ struct TileArgs {
 
 // Shared-memory layout of one block, in floats: the query rows of batch
 // row b (stride d + 4 keeps float4 rows 16-byte aligned and spreads
-// lanes over banks), one decode buffer of d floats per warp, the bucket
+// lanes over banks), one token buffer of d floats per warp, the bucket
 // table, then `extra` floats for the caller.
 __host__ __device__ inline int q_stride(int d) { return d + 4; }
 
@@ -52,47 +56,110 @@ __host__ __device__ inline size_t tile_smem_floats(int Lq, int d, int warps,
 
 struct TileSmem {
   float* qs;
-  float* emb;      // this warp's decode buffer
+  float* emb;      // this warp's token buffer
   float* bw;
   float* extra;
 };
 
-__device__ inline TileSmem carve_smem(float* smem, const TileArgs& a,
-                                      int warps, int warp) {
+__device__ inline TileSmem carve_smem(float* smem, int Lq, int d, int warps,
+                                      int warp) {
   TileSmem s;
   s.qs = smem;
-  float* emb_all = smem + (size_t)a.Lq * q_stride(a.d);
-  s.emb = emb_all + (size_t)warp * a.d;
-  s.bw = emb_all + (size_t)warps * a.d;
+  float* emb_all = smem + (size_t)Lq * q_stride(d);
+  s.emb = emb_all + (size_t)warp * d;
+  s.bw = emb_all + (size_t)warps * d;
   s.extra = s.bw + kMaxBuckets;
   return s;
 }
 
-// Whole block: stage batch row b's query and the bucket table in shared
-// memory. The caller synchronises the block afterwards.
-__device__ inline void load_row(const TileArgs& a, int b, const TileSmem& s) {
-  const int n = a.Lq * a.d;
-  const float* qb = a.q + (size_t)b * n;
+// Whole block: stage batch row b's query (B, Lq, d) in shared memory.
+// The caller synchronises the block afterwards.
+__device__ inline void load_query(const float* q, int b, int Lq, int d,
+                                  const TileSmem& s) {
+  const int n = Lq * d;
+  const float* qb = q + (size_t)b * n;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    s.qs[(i / a.d) * q_stride(a.d) + i % a.d] = qb[i];
+    s.qs[(i / d) * q_stride(d) + i % d] = qb[i];
   }
+}
+
+// Whole block: the query rows and the bucket table.
+__device__ inline void load_row(const TileArgs& a, int b, const TileSmem& s) {
+  load_query(a.q, b, a.Lq, a.d, s);
   if (threadIdx.x < (1 << a.nbits)) s.bw[threadIdx.x] = a.bucket_weights[threadIdx.x];
 }
 
-// One warp: the MaxSim score of candidate c of batch row b. Every lane
-// returns the same value.
+// The MaxSim part of the tile body, shared by every kernel that scores
+// a candidate: `token_max` folds one doc token, already staged in the
+// warp's buffer s.emb, into each lane's running maxima; `query_sum`
+// turns the maxima into the candidate's score.
+
+__device__ inline void init_max(float (&m)[kMaxLqPerLane]) {
+#pragma unroll
+  for (int r = 0; r < kMaxLqPerLane; ++r) m[r] = kNeg;
+}
+
+// Lane i takes the dot product of query token i (and i + 32, ...) with
+// the staged token, sequentially over d with fmaf, and keeps the max.
+__device__ inline void token_max(const TileSmem& s, int Lq, int d, int lane,
+                                 float (&m)[kMaxLqPerLane]) {
+  const float4* e4 = reinterpret_cast<const float4*>(s.emb);
+#pragma unroll
+  for (int r = 0; r < kMaxLqPerLane; ++r) {
+    const int qi = r * 32 + lane;
+    if (qi < Lq) {
+      const float4* q4 =
+          reinterpret_cast<const float4*>(s.qs + (size_t)qi * q_stride(d));
+      float acc = 0.f;
+      for (int j = 0; j < d / 4; ++j) {
+        const float4 x = q4[j];
+        const float4 y = e4[j];
+        acc = fmaf(x.x, y.x, acc);
+        acc = fmaf(x.y, y.y, acc);
+        acc = fmaf(x.z, y.z, acc);
+        acc = fmaf(x.w, y.w, acc);
+      }
+      m[r] = fmaxf(m[r], acc);
+    }
+  }
+}
+
+// A query token with no valid doc token scores 0, a padded query token
+// (q_valid_row[qi] == 0) contributes 0; the sum runs over query tokens
+// in ascending order. Every lane returns the same value.
+__device__ inline float query_sum(const float (&m)[kMaxLqPerLane],
+                                  const uint8_t* q_valid_row, int Lq,
+                                  int lane) {
+  float total = 0.f;
+#pragma unroll
+  for (int r = 0; r < kMaxLqPerLane; ++r) {
+    if (r * 32 >= Lq) break;
+    const int qi = r * 32 + lane;
+    float v = 0.f;
+    if (qi < Lq) {
+      v = m[r] <= kNeg * 0.5f ? 0.f : m[r];
+      v = v * (q_valid_row[qi] ? 1.f : 0.f);
+    }
+    const int n = min(32, Lq - r * 32);
+    for (int src = 0; src < n; ++src) total += __shfl_sync(0xffffffffu, v, src);
+  }
+  return total;
+}
+
+// One warp: the MaxSim score of compressed candidate c of batch row b.
+// Each valid token is decoded into s.emb (centroid row + bucket weight,
+// one fp32 add per dimension) and folded in with `token_max`. Every
+// lane returns the same value.
 __device__ inline float score_candidate(const TileArgs& a, int b, int c,
                                         const TileSmem& s, int lane) {
-  const int d = a.d, Lq = a.Lq, nbits = a.nbits;
+  const int d = a.d, nbits = a.nbits;
   const int cpb = 8 / nbits;
   const int pd = d / cpb;
   const unsigned code_mask = (1u << nbits) - 1u;
   const size_t tok0 = ((size_t)b * a.C + c) * a.Ld;
 
   float m[kMaxLqPerLane];
-#pragma unroll
-  for (int r = 0; r < kMaxLqPerLane; ++r) m[r] = kNeg;
-
+  init_max(m);
   for (int t = 0; t < a.Ld; ++t) {
     const size_t tok = tok0 + t;
     if (!a.valid[tok]) continue;  // the same for every lane of the warp
@@ -103,45 +170,10 @@ __device__ inline float score_candidate(const TileArgs& a, int b, int c,
       s.emb[j] = crow[j] + s.bw[code];
     }
     __syncwarp();
-    const float4* e4 = reinterpret_cast<const float4*>(s.emb);
-#pragma unroll
-    for (int r = 0; r < kMaxLqPerLane; ++r) {
-      const int qi = r * 32 + lane;
-      if (qi < Lq) {
-        const float4* q4 =
-            reinterpret_cast<const float4*>(s.qs + (size_t)qi * q_stride(d));
-        float acc = 0.f;
-        for (int j = 0; j < d / 4; ++j) {
-          const float4 x = q4[j];
-          const float4 y = e4[j];
-          acc = fmaf(x.x, y.x, acc);
-          acc = fmaf(x.y, y.y, acc);
-          acc = fmaf(x.z, y.z, acc);
-          acc = fmaf(x.w, y.w, acc);
-        }
-        m[r] = fmaxf(m[r], acc);
-      }
-    }
+    token_max(s, a.Lq, d, lane, m);
     __syncwarp();  // the buffer is rewritten for the next token
   }
-
-  // a query token with no valid doc token scores 0, a padded query
-  // token contributes 0; the sum runs over query tokens in ascending
-  // order
-  float total = 0.f;
-#pragma unroll
-  for (int r = 0; r < kMaxLqPerLane; ++r) {
-    if (r * 32 >= Lq) break;
-    const int qi = r * 32 + lane;
-    float v = 0.f;
-    if (qi < Lq) {
-      v = m[r] <= kNeg * 0.5f ? 0.f : m[r];
-      v = v * (a.q_valid[(size_t)b * Lq + qi] ? 1.f : 0.f);
-    }
-    const int n = min(32, Lq - r * 32);
-    for (int src = 0; src < n; ++src) total += __shfl_sync(0xffffffffu, v, src);
-  }
-  return total;
+  return query_sum(m, a.q_valid + (size_t)b * a.Lq, a.Lq, lane);
 }
 
 }  // namespace rt

@@ -50,8 +50,20 @@ class Result:
 
 
 class ServeEngine:
-    def __init__(self, retriever: MultiStageRetriever):
+    def __init__(self, retriever: MultiStageRetriever,
+                 splade_backend: Optional[str] = None):
+        """``splade_backend`` (host | device) switches the retriever's
+        stage-1 scorer at construction time — a convenience for
+        retrievers built elsewhere, NOT a per-engine scope: the
+        retriever owns the setting, so a later ``set_splade_backend``
+        (or another engine constructed over the same retriever) wins.
+        ``device`` also builds the padded-postings device cache here, so
+        the first request does not pay the transfer."""
         self.retriever = retriever
+        if splade_backend is not None:
+            retriever.set_splade_backend(splade_backend)
+            if splade_backend != "host":
+                retriever.splade_device_cache()
         self._lock = threading.Lock()
         self.served = 0
 

@@ -8,8 +8,12 @@ that has only PyTorch:
 
 The kernels are held to their plain PyTorch versions (scores
 ``allclose(rtol=1e-5, atol=1e-5)``: the kernel sums each dot product in
-a fixed sequential order, the plain version through cuBLAS; ids equal up
-to tie groups), and the fused tail to the split tail bit for bit.
+a fixed sequential order, the plain version through cuBLAS, and the
+plain SPLADE version on the card through atomics; ids equal up to tie
+groups), and bit for bit wherever the port promises it: the fused tail
+to the split tail, the SPLADE kernel to the ordered plain version on the
+CPU and to the host scorer, MaxSim on decoded embeddings to
+decompress+MaxSim.
 """
 
 import numpy as np
@@ -20,11 +24,20 @@ from repro_torch.core.multistage import (METHODS, MultiStageParams,
                                          MultiStageRetriever)
 from repro_torch.core.plaid import PLAIDSearcher
 from repro_torch.index.builder import ColBERTIndex, write_index
+from repro_torch.index.residual import decode_embeddings
+from repro_torch.index.splade_device import SpladeDeviceCache
 from repro_torch.index.splade_index import SpladeIndex, build_splade_index
 from repro_torch.kernels.decompress_maxsim.ops import (
     decompress_maxsim_scores_batch)
 from repro_torch.kernels.fused_rerank.ops import fused_rerank_topk_batch
 from repro_torch.kernels.fused_rerank.ref import stable_topk
+from repro_torch.kernels.maxsim.ops import maxsim_scores, maxsim_scores_batch
+from repro_torch.kernels.maxsim.ref import maxsim_scores_ref
+from repro_torch.kernels.splade_score.ops import (splade_block_scores,
+                                                  splade_block_scores_batch,
+                                                  splade_row_scores_batch)
+from repro_torch.kernels.splade_score.ref import splade_block_scores_batch_ref
+from repro_torch.serving.engine import ServeEngine
 from repro_torch.testing import REF_MARGIN, assert_topk_match
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -144,3 +157,109 @@ def test_serving_path_matches_cpu(cuda, index_dir):
         np.testing.assert_array_equal(fused[0], split[0])
         np.testing.assert_array_equal(fused[1].view(np.uint32),
                                       split[1].view(np.uint32))
+
+
+@pytest.mark.parametrize("B,Qt,max_df,n_docs,imp", [
+    (3, 8, 64, 500, "f32"),
+    (5, 16, 16, 700, "u8"),
+    (2, 4, 300, 9000, "f32"),       # n_docs past one doc block, ragged
+    (1, 1, 1, 1, "u8"),
+])
+def test_splade_kernel_matches_plain(cuda, B, Qt, max_df, n_docs, imp):
+    """Kernel against the plain version on the card (atomics: a
+    tolerance) and on the CPU (the same order: bit for bit), with -1
+    pads, repeated pids in a row and disabled term slots."""
+    rng = np.random.default_rng(B * 100 + Qt)
+    pids = rng.integers(-1, min(n_docs, 40) if B == 5 else n_docs,
+                        (B, Qt, max_df)).astype(np.int32)
+    imps = (rng.integers(1, 256, (B, Qt, max_df)).astype(np.uint8)
+            if imp == "u8" else rng.random((B, Qt, max_df), np.float32))
+    w = rng.random((B, Qt), np.float32)
+    w[0, 0] = 0.0
+    cpu = tuple(map(torch.from_numpy, (pids, imps, w)))
+    dev = tuple(t.to(cuda) for t in cpu)
+    before = splade_row_scores_batch.launches
+    got = splade_block_scores_batch(*dev, n_docs=n_docs)
+    assert splade_row_scores_batch.launches == before + 1
+    on_card = splade_block_scores_batch_ref(*dev, n_docs)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), on_card.cpu().numpy(),
+                               **TOL)
+    want = splade_block_scores_batch(*cpu, n_docs=n_docs)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                  want.numpy().view(np.uint32))
+    one = splade_block_scores(*(t[B - 1] for t in dev), n_docs=n_docs)
+    assert torch.equal(one, got[B - 1])
+
+
+def test_splade_device_cache_equals_host_bitwise(cuda, index_dir):
+    idx = SpladeIndex.load(index_dir / "splade")
+    rng = np.random.default_rng(2)
+    tids = [rng.integers(0, 500, int(rng.integers(1, 12))) for _ in range(9)]
+    tw = [rng.uniform(0.1, 2, len(t)).astype(np.float32) for t in tids]
+    tw[3][:] = 0.0                                   # an all-zero query
+    cache = SpladeDeviceCache(idx, device=cuda)
+    assert cache.pids.is_cuda and cache.truncated_terms == 0
+    for k in (1, 60, idx.n_docs + 7):
+        dp, ds = cache.score_topk(tids, tw, k)
+        hp, hs = idx.score_batch_host(tids, tw, k)
+        np.testing.assert_array_equal(dp, hp)
+        np.testing.assert_array_equal(ds.view(np.uint32), hs.view(np.uint32))
+    with pytest.raises(IndexError, match="out of range"):
+        cache.score_topk([np.array([idx.vocab])], [np.ones(1, np.float32)],
+                         5)
+
+
+def test_maxsim_kernel_matches_plain_and_decompress(cuda):
+    rng = np.random.default_rng(5)
+    B, C, Ld, Lq, d, K, nbits = 3, 40, 12, 32, 128, 500, 4
+    q = torch.from_numpy(rng.normal(size=(B, Lq, d)).astype(np.float32))
+    packed = torch.from_numpy(rng.integers(0, 256, (B, C, Ld, d * nbits // 8),
+                                           dtype=np.uint8))
+    cids = torch.from_numpy(rng.integers(0, K, (B, C, Ld), dtype=np.int32))
+    valid = torch.from_numpy(rng.random((B, C, Ld)) < 0.8)
+    valid[1, 7] = False                              # an all-invalid doc
+    qv = torch.from_numpy(rng.random((B, Lq)) < 0.9)
+    cent = torch.from_numpy(rng.normal(size=(K, d)).astype(np.float32))
+    bw = torch.linspace(-0.3, 0.3, 2 ** nbits)
+    q, packed, cids, valid, qv, cent, bw = (
+        t.to(cuda) for t in (q, packed, cids, valid, qv, cent, bw))
+    emb = decode_embeddings(packed, cids, cent, bw, nbits)
+    before = maxsim_scores_batch.launches
+    got = maxsim_scores_batch(q, emb, valid, qv)
+    assert maxsim_scores_batch.launches == before + 1
+    want = maxsim_scores_ref(q, emb, valid, qv)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert got[1, 7].item() == 0.0
+    dms = decompress_maxsim_scores_batch(q, packed, cids, valid, cent, bw,
+                                         nbits=nbits, q_valid=qv)
+    assert torch.equal(got.view(torch.int32), dms.view(torch.int32))
+    one = maxsim_scores(q[2], emb[2], valid[2], qv[2])
+    assert torch.equal(one, got[2])
+    half = maxsim_scores_batch(q.bfloat16(), emb.bfloat16(), valid, qv)
+    assert half.dtype == torch.float32
+
+
+def test_device_stage1_serving_matches_cpu(cuda, index_dir):
+    rng = np.random.default_rng(3)
+    n = 10
+    kw = dict(q_embs=[rng.normal(size=(int(rng.integers(4, 33)), 64))
+                      .astype(np.float32) for _ in range(n)],
+              term_ids=[rng.integers(0, 500, 8) for _ in range(n)],
+              term_weights=[rng.uniform(0.1, 2, 8).astype(np.float32)
+                            for _ in range(n)],
+              alpha=list(np.linspace(0, 1, n)), k=30)
+    gpu = _retriever(index_dir, cuda)
+    ServeEngine(gpu, splade_backend="device")
+    cpu = _retriever(index_dir, "cpu")
+    dp, ds = gpu.run_splade_batch(kw["term_ids"], kw["term_weights"])
+    hp, hs = gpu.run_splade_batch(kw["term_ids"], kw["term_weights"],
+                                  backend="host")
+    np.testing.assert_array_equal(dp, hp)
+    np.testing.assert_array_equal(ds.view(np.uint32), hs.view(np.uint32))
+    for method in METHODS:
+        before = splade_row_scores_batch.launches
+        got = gpu.search_batch(method, **kw)
+        assert splade_row_scores_batch.launches == before + 1
+        want = cpu.search_batch(method, **dict(kw, k=kw["k"] + REF_MARGIN))
+        assert_topk_match(want[1], want[0], got[1], got[0], what=method)

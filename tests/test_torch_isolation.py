@@ -63,9 +63,11 @@ def test_default_device_raises_without_cuda():
         "from repro_torch.common import resolve_device\n"
         "from repro_torch.core.multistage import MultiStageRetriever\n"
         "from repro_torch.core.plaid import PLAIDSearcher\n"
+        "from repro_torch.index.splade_device import SpladeDeviceCache\n"
         "assert resolve_device('cpu').type == 'cpu'\n"
         "for make in (lambda: resolve_device(),\n"
         "             lambda: PLAIDSearcher(object()),\n"
+        "             lambda: SpladeDeviceCache(object()),\n"
         "             lambda: MultiStageRetriever(None, None)):\n"
         "    try:\n"
         "        make()\n"
