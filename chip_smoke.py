@@ -18,22 +18,32 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. index   — write a synthetic index at full width (d=128, nbits=4,
              doc_maxlen=180, K=131072, SPLADE vocab 30522) with
              ``write_index`` and ``SpladeIndex.save``, 100,000 docs; then
-             hold the SPLADE kernel against its plain version on the
-             index's own padded postings (32 queries of 12 terms), its
-             top-k against the host scorer bit for bit, and its edge
-             cases (repeated pids in a row, all-zero weights, k > n_docs,
-             a ragged last doc block, truncated postings, an
-             out-of-vocabulary id);
-4. serve   — serve 64 mixed splade/rerank/hybrid requests through
-             ``RetrievalServer`` on ``cuda`` with max_batch=32, once with
-             the host stage 1 and once with ``splade_backend="device"``;
-             hold every answer of both against an engine built with
-             ``device="cpu"`` over the same directory, check in each run
-             that the kernels of its path were launched, and that the
-             device stage 1 equals the host's bit for bit on the
-             requests' terms;
+             hold the SPLADE kernel's two entry points (scores, per-block
+             top-k) on the cache's pid-sorted rows against their plain
+             versions on the index's ``as_padded`` layout (32 queries of
+             12 terms; k = 200 and around the top-k block size), with
+             ``max_df=64`` truncation (the layout unsorted, the copy
+             sorted), the cache's top-200 and whole ranking against the
+             host scorer bit for bit, and the edge cases (unsorted rows
+             with repeated pids, all-zero weights, k > n_docs, a ragged
+             last doc block, an out-of-vocabulary id);
+4. serve   — serve mixed splade/rerank/hybrid requests through
+             ``RetrievalServer`` on ``cuda``: 64 at max_batch=32, once
+             with the host stage 1 and once with
+             ``splade_backend="device"`` (in turns, twice each); 24 at
+             the server's default max_batch=1 and 32 with the split
+             rerank tail, both with the device stage 1. Every answer is
+             held to an engine built with ``device="cpu"`` over the same
+             directory, each run's launch counts must show the kernels of
+             its path and no other, and the device stage 1 must equal the
+             host's bit for bit on the requests' terms;
 5. time    — time each kernel with CUDA events at the serve shapes, and
-             each at B=1.
+             each at B=1, in an eager loop (the SPLADE kernel's two
+             entry points and ``index_add_`` also by CUDA-graph replay,
+             as ``graph_ms`` and ``library_graph_ms``); and one
+             device stage-1 dispatch in its parts (host padding, the
+             copy in, the top-k launch, the copy out, the whole
+             dispatch, and the full sort the launch replaced).
 
 Arithmetic is IEEE fp32: TF32 is switched off for matmuls and cuDNN.
 The last line of standard output is
@@ -317,61 +327,87 @@ def write_synthetic_index(rng, s: Shapes, out: pathlib.Path, nbits: int = 4):
 def kernel_rows(cache, tids, tw):
     """The SPLADE kernel's (term rows, scaled weights) for a batch of
     queries, on the cache's device — what ``score_topk`` launches on."""
-    import torch
-    rows, w = cache.scaled_weights(*cache.pad_queries(list(tids), list(tw)))
-    return (torch.as_tensor(rows, device=cache.device),
-            torch.as_tensor(w, device=cache.device))
+    return cache.upload(*cache.scaled_weights(
+        *cache.pad_queries(list(tids), list(tw))))
 
 
 def check_splade(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
-                 device) -> float:
-    """The SPLADE kernel on the index's own padded postings: against its
-    plain version on the card (atomics there: a tolerance) and on the
-    CPU (its order: bit for bit), and its top-k against the host scorer
-    bit for bit. Returns the largest |kernel - plain|."""
+                 device) -> dict:
+    """The SPLADE kernel's two entry points on the index's own postings,
+    read from the cache's pid-sorted rows: the scores against the plain
+    version on the card (atomics there: a tolerance) and, bit for bit,
+    on the CPU over the unsorted ``as_padded`` layout; the per-block
+    top-k candidates and the merged top-k bit for bit against theirs;
+    the cache's top-k against the host scorer bit for bit. Returns the
+    largest |kernel - plain| of each entry point."""
     import torch
     from repro_torch.index.splade_device import SpladeDeviceCache
     from repro_torch.index.splade_index import SpladeIndex
-    from repro_torch.kernels import _build
     from repro_torch.kernels.splade_score.ops import (
-        splade_block_scores, splade_block_scores_batch,
-        splade_row_scores_batch)
+        SCORE_BLOCK_DOCS, TOPK_BLOCK_DOCS, splade_block_scores,
+        splade_block_scores_batch, splade_block_topk_batch,
+        splade_row_block_candidates, splade_row_scores_batch,
+        splade_row_topk_batch)
     from repro_torch.kernels.splade_score.ref import (
-        splade_row_scores_batch_ref)
+        block_topk_ref, splade_row_scores_batch_ref)
     from repro_torch.testing import ATOL, RTOL
 
     index = SpladeIndex.load(path / "splade", mmap=True)
     cache = SpladeDeviceCache(index, device=device)
-    block_d = _build.load().splade_score_block_docs()
     log(f"splade cache: max_df {cache.max_df}, truncated_terms "
         f"{cache.truncated_terms}, nbytes {cache.nbytes()}, n_docs "
-        f"{cache.n_docs} = {cache.n_docs // block_d} blocks of {block_d} "
-        f"+ {cache.n_docs % block_d}")
-    assert cache.truncated_terms == 0 and cache.n_docs % block_d
+        f"{cache.n_docs}, in blocks of {SCORE_BLOCK_DOCS} (scores; the "
+        f"last of {cache.n_docs % SCORE_BLOCK_DOCS}) and {TOPK_BLOCK_DOCS} "
+        f"(top-k; the last of {cache.n_docs % TOPK_BLOCK_DOCS})")
+    assert cache.truncated_terms == 0 and cache.row_pids is cache.pids
+    assert cache.n_docs % SCORE_BLOCK_DOCS and cache.n_docs % TOPK_BLOCK_DOCS
     tids, tw = (list(a) for a in topic_terms(rng, topics, s.B,
                                               s.query_terms))
     tw[5] = np.zeros_like(tw[5])                     # an all-zero query
     rows, w = kernel_rows(cache, tids, tw)
+    err = {"splade_score": 0.0, "splade_topk": 0.0}
 
-    def against_plain(c, rows, w, what):
-        got = splade_row_scores_batch(c.pids, c.imps, rows, w,
+    def against_plain(c, what):
+        """Both entry points on the sorted copy against the plain version
+        on the as_padded layout, which is unsorted where rows are
+        truncated."""
+        got = splade_row_scores_batch(c.row_pids, c.row_imps, rows, w,
                                       n_docs=c.n_docs)
         on_card = splade_row_scores_batch_ref(c.pids, c.imps, rows, w,
                                               c.n_docs)
         torch.cuda.synchronize()
         e = (got - on_card).abs().max().item()
+        err["splade_score"] = max(err["splade_score"], e)
         np.testing.assert_allclose(got.cpu().numpy(), on_card.cpu().numpy(),
                                    rtol=RTOL, atol=ATOL, err_msg=what)
-        ordered = splade_row_scores_batch_ref(c.pids.cpu(), c.imps.cpu(),
-                                              rows.cpu(), w.cpu(), c.n_docs)
+        cpu = (c.pids.cpu(), c.imps.cpu(), rows.cpu(), w.cpu())
+        ordered = splade_row_scores_batch_ref(*cpu, c.n_docs)
         assert torch.equal(got.cpu().view(torch.int32),
                            ordered.view(torch.int32)), \
             f"{what}: kernel != ordered plain version"
-        return got, e
+        for k in (s.C, TOPK_BLOCK_DOCS - 1, TOPK_BLOCK_DOCS,
+                  TOPK_BLOCK_DOCS + 1):
+            cs, cp = splade_row_block_candidates(c.row_pids, c.row_imps,
+                                                 rows, w, n_docs=c.n_docs,
+                                                 k=k)
+            ws, wp = block_topk_ref(ordered, k, TOPK_BLOCK_DOCS)
+            fin = torch.isfinite(ws)
+            err["splade_topk"] = max(err["splade_topk"], (
+                cs.cpu()[fin] - ws[fin]).abs().max().item())
+            assert torch.equal(cp.cpu(), wp) and torch.equal(
+                cs.cpu().view(torch.int32), ws.view(torch.int32)), \
+                f"{what}: top-{k} candidates != plain"
+            tp, ts = splade_row_topk_batch(c.row_pids, c.row_imps, rows, w,
+                                           n_docs=c.n_docs, k=k)
+            hp, hs = splade_row_topk_batch(*cpu, n_docs=c.n_docs, k=k)
+            assert torch.equal(tp.cpu(), hp) and torch.equal(
+                ts.cpu().view(torch.int32), hs.view(torch.int32)), \
+                f"{what}: top-{k} != plain"
+        return got
 
-    got, err = against_plain(cache, rows, w, "splade serve batch")
+    got = against_plain(cache, "splade serve batch")
     assert torch.all(got[5] == 0), "an all-zero query must score 0"
-    one = splade_row_scores_batch(cache.pids, cache.imps, rows[2:3],
+    one = splade_row_scores_batch(cache.row_pids, cache.row_imps, rows[2:3],
                                   w[2:3], n_docs=cache.n_docs)
     assert torch.equal(one[0], got[2]), "B=1 splade != batch row"
     for k in (FULL.C, cache.n_docs + 5):             # k > n_docs pads
@@ -380,26 +416,32 @@ def check_splade(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
         assert np.array_equal(dp, hp), f"splade top-{k} pids != host"
         assert np.array_equal(ds.view(np.uint32), hs.view(np.uint32)), \
             f"splade top-{k} scores != host bits"
-    log(f"splade: max |err| {err:.3g}; top-{FULL.C} and the whole ranking "
-        "equal the host scorer bit for bit")
+    log(f"splade: max |err| {err}; both entry points == their ordered "
+        f"plain versions; top-{FULL.C} and the whole ranking equal the "
+        "host scorer bit for bit")
 
     trunc = SpladeDeviceCache(index, max_df=64, device=device)
-    assert trunc.truncated_terms > 0
-    against_plain(trunc, rows, w, "splade max_df=64")
-    log(f"splade max_df=64: {trunc.truncated_terms} truncated terms, "
-        "kernel == plain")
+    assert trunc.truncated_terms > 0 and trunc.row_pids is not trunc.pids
+    against_plain(trunc, "splade max_df=64")
+    log(f"splade max_df=64: {trunc.truncated_terms} truncated terms; the "
+        "kernel on the sorted copy == the ordered plain version on the "
+        "unsorted layout")
 
-    # repeated pids inside a row, -1 pads, f32 impacts, a B=1 launch
+    # unsorted gathered rows: repeated pids inside a row, -1 pads, f32
+    # impacts, a B=1 launch
     pids = torch.as_tensor(rng.integers(-1, 40, (5, 16, 16), dtype=np.int32))
     imps = torch.as_tensor(rng.random((5, 16, 16), np.float32))
     pw = torch.as_tensor(rng.random((5, 16), np.float32))
-    got = splade_block_scores_batch(pids.to(device), imps.to(device),
-                                    pw.to(device), n_docs=700)
+    dev = (pids.to(device), imps.to(device), pw.to(device))
+    got = splade_block_scores_batch(*dev, n_docs=700)
     want = splade_block_scores_batch(pids, imps, pw, n_docs=700)
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
-    one = splade_block_scores(pids[1].to(device), imps[1].to(device),
-                              pw[1].to(device), n_docs=700)
+    one = splade_block_scores(*(t[1] for t in dev), n_docs=700)
     assert torch.equal(one, got[1])
+    for k in (1, 50, 700):
+        tp, ts = splade_block_topk_batch(*dev, n_docs=700, k=k)
+        hp, hs = splade_block_topk_batch(pids, imps, pw, n_docs=700, k=k)
+        assert torch.equal(tp.cpu(), hp) and torch.equal(ts.cpu(), hs)
     try:
         cache.score_topk([np.array([s.vocab + 3])], [np.ones(1, np.float32)],
                          5)
@@ -407,8 +449,9 @@ def check_splade(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
         pass
     else:
         raise AssertionError("an out-of-vocabulary id must raise")
-    log("splade edge cases: repeated pids, all-zero weights, k > n_docs, "
-        "ragged last block, truncation, out-of-vocabulary id")
+    log("splade edge cases: unsorted rows with repeated pids, all-zero "
+        "weights, k around the block size, k > n_docs, ragged last block, "
+        "truncation, out-of-vocabulary id")
     return err
 
 
@@ -445,14 +488,15 @@ def make_requests(rng, s: Shapes, topics: np.ndarray, n: int,
     return reqs
 
 
-def serve_run(engine, warm, reqs, s: Shapes, counted: dict):
+def serve_run(engine, warm, reqs, max_batch: int, counted: dict):
     """Serve ``reqs`` through a ``RetrievalServer`` over ``engine`` after
     a warm-up batch, with every counter of ``counted`` (name → wrapper)
     set to 0 just before the requests and read just after."""
     from repro_torch.serving.server import RetrievalServer
 
     engine.process_batch(warm)
-    server = RetrievalServer(engine, max_batch=s.B, batch_timeout_ms=5.0)
+    server = RetrievalServer(engine, max_batch=max_batch,
+                             batch_timeout_ms=5.0)
     server.start()
     try:
         engine.retriever.reset_stage_stats()
@@ -471,7 +515,8 @@ def serve_run(engine, warm, reqs, s: Shapes, counted: dict):
     lat = np.array([r.latency for r in results]) * 1e3
     stages = {n: r["wall_s"] for n, r in health["stages"].items()}
     return results, {
-        "requests": len(results), "batches": health["batches"],
+        "requests": len(results), "max_batch": max_batch,
+        "batches": health["batches"],
         "qps": len(results) / wall,
         "p50_ms": float(np.percentile(lat, 50)),
         "p99_ms": float(np.percentile(lat, 99)),
@@ -481,46 +526,74 @@ def serve_run(engine, warm, reqs, s: Shapes, counted: dict):
                                for n, c in launches.items()}}
 
 
+def serve_runs(s: Shapes):
+    """Phase 4's runs: (label, stage-1 backend, rerank tail, max_batch,
+    number of requests). The host/device pairs at max_batch=B run in
+    turns so that the two backends are compared inside one call; then
+    the server's default max_batch=1 and the split tail, each on fewer
+    requests."""
+    full = (s.B, s.n_requests)
+    return (("host", "host", "fused", *full),
+            ("device", "device", "fused", *full),
+            ("device", "device", "fused", *full),
+            ("host", "host", "fused", *full),
+            ("device_b1", "device", "fused", 1, min(24, s.n_requests)),
+            ("device_split", "device", "split", s.B,
+             min(32, s.n_requests)))
+
+
 def serve(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
           device) -> dict:
-    """Serve the same 64 requests with the host and with the device
-    stage 1, in turns (host, device, device, host, so that the two are
-    compared inside one call); every run's answers are held to one CPU
-    reference. → {backend: [run line, run line]}."""
+    """Serve the runs of :func:`serve_runs` (each a prefix of the same 64
+    requests); every run's answers are held to one CPU reference, and
+    each run's launch counts must show the kernels of its path. →
+    {label: [run line, ...]}."""
     from repro_torch.kernels.decompress_maxsim.ops import (
         decompress_maxsim_scores_batch as dms)
     from repro_torch.kernels.fused_rerank.ops import (
         fused_rerank_topk_batch as frk)
     from repro_torch.kernels.maxsim.ops import maxsim_scores_batch
-    from repro_torch.kernels.splade_score.ops import splade_row_scores_batch
+    from repro_torch.kernels.splade_score.ops import (splade_row_scores_batch,
+                                                      splade_row_topk_batch)
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.testing import REF_MARGIN, assert_topk_match
 
     counted = {"decompress_maxsim": dms, "fused_rerank": frk,
                "splade_score": splade_row_scores_batch,
+               "splade_topk": splade_row_topk_batch,
                "maxsim": maxsim_scores_batch}
-    # the kernels each path must launch
-    paths = {"host": ("decompress_maxsim", "fused_rerank"),
-             "device": ("splade_score", "decompress_maxsim",
-                        "fused_rerank")}
+    # the kernels each (stage-1 backend, rerank tail) must launch; the
+    # device stage 1 runs the SPLADE kernel's top-k entry point
+    stage1 = {"host": (), "device": ("splade_topk",)}
+    tail = {"fused": ("decompress_maxsim", "fused_rerank"),
+            "split": ("decompress_maxsim",)}
     retriever = make_retriever(path, device)
     warm = make_requests(rng, s, topics, 6, qid0=10_000)
     reqs = make_requests(rng, s, topics, s.n_requests)
     runs = []
-    for backend in ("host", "device", "device", "host"):
-        engine = ServeEngine(retriever, splade_backend=backend)
-        results, line = serve_run(engine, warm, reqs, s, counted)
-        runs.append((backend, results, line))
-        launches = line["launches"]
-        log(f"served {len(results)} requests with the {backend} stage 1 in "
-            f"{line['requests'] / line['qps']:.3f} s, {line['batches']} "
-            f"batches; launches {launches}")
-        for name in paths[backend]:
-            if launches[name] == 0:
-                raise RuntimeError(f"kernel {name} was never launched while "
-                                   f"serving with the {backend} stage 1")
-        if backend == "host" and launches["splade_score"]:
-            raise RuntimeError("the host stage 1 launched the SPLADE kernel")
+    try:
+        for label, backend, rerank, max_batch, n in serve_runs(s):
+            retriever.set_rerank_backend(rerank)
+            engine = ServeEngine(retriever, splade_backend=backend)
+            results, line = serve_run(engine, warm, reqs[:n], max_batch,
+                                      counted)
+            line.update(splade_backend=backend, rerank_backend=rerank)
+            runs.append((label, results, line))
+            launches = line["launches"]
+            log(f"served {len(results)} requests ({label}: {backend} stage "
+                f"1, {rerank} tail, max_batch {max_batch}) in "
+                f"{line['requests'] / line['qps']:.3f} s, {line['batches']} "
+                f"batches; launches {launches}")
+            for name in stage1[backend] + tail[rerank]:
+                if launches[name] == 0:
+                    raise RuntimeError(f"kernel {name} was never launched "
+                                       f"in the {label} run")
+            for name in set(counted) - set(stage1[backend] + tail[rerank]):
+                if launches[name]:
+                    raise RuntimeError(f"the {label} run launched {name}, "
+                                       "which is not on its path")
+    finally:
+        retriever.set_rerank_backend("fused")
 
     # the reference answers REF_MARGIN places deeper, so that ties at
     # each answer's last place are visible
@@ -529,12 +602,12 @@ def serve(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
     want = []
     for lo in range(0, len(deeper), s.B):
         want += ref_engine.process_batch(deeper[lo:lo + s.B])
-    for backend, results, _ in runs:
+    for label, results, _ in runs:
         for res, ref, req in zip(results, want, reqs):
             assert res.qid == ref.qid == req.qid
             assert_topk_match(ref.scores, ref.pids, res.scores, res.pids,
-                              what=f"{backend} stage 1: qid {req.qid} "
-                                   f"{req.method} k={req.k}")
+                              what=f"{label}: qid {req.qid} {req.method} "
+                                   f"k={req.k}")
     log(f"every answer of all {len(runs)} runs matches the CPU engine")
 
     tids = [r.term_ids for r in reqs]
@@ -546,7 +619,8 @@ def serve(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
         "device stage 1 != host stage 1 on the served requests"
     log(f"device stage 1 == host stage 1 bit for bit on the {len(reqs)} "
         "requests")
-    return {b: [line for b2, _, line in runs if b2 == b] for b in paths}
+    return {lb: [line for lb2, _, line in runs if lb2 == lb]
+            for lb in dict.fromkeys(r[0] for r in serve_runs(s))}
 
 
 # ---------------------------------------------------------------------------
@@ -566,6 +640,34 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_time_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """CUDA-event ms per call of ``fn`` with the host's enqueue taken out:
+    ``iters`` calls captured in one CUDA graph, replayed ``reps`` times.
+    An eager loop of a kernel that is shorter than its wrapper's Python
+    times the host, not the card."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
 
 
 def bound(x: dict, s: Shapes, peaks, fused: bool) -> tuple[float, str]:
@@ -600,16 +702,21 @@ def rows_of(x: dict, b: int) -> dict:
             for k, v in x.items()}
 
 
-def splade_bound(cache, rows, w, peaks) -> tuple[float, str]:
+def splade_bound(cache, rows, w, peaks, k: int | None = None
+                 ) -> tuple[float, str]:
     """Bytes: the real postings of the queried rows (4-byte pid and
     1-byte impact each, padding not counted), the (rows, weights) slots
-    and the (B, n_docs) f32 scores written; operations: one multiply
-    and one add per real posting, at the fp32 peak."""
+    and the function's output: the (B, n_docs) f32 scores, or with ``k``
+    the (B, k) pids and scores, 8 bytes a place (the launch's per-block
+    candidates are its own intermediate); operations: one multiply and
+    one add per real posting, at the fp32 peak."""
     flops_peak, bw_peak = peaks
     live = (rows >= 0) & (w > 0)
     r = rows[live].long()
     entries = (cache.pids[r] >= 0).sum().item()
-    n_bytes = entries * 5 + rows.numel() * 8 + rows.shape[0] * cache.n_docs * 4
+    B = rows.shape[0]
+    written = B * (cache.n_docs * 4 if k is None else k * 8)
+    n_bytes = entries * 5 + rows.numel() * 8 + written
     t_bytes, t_ops = n_bytes / bw_peak, 2 * entries / flops_peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -631,6 +738,58 @@ def maxsim_bound(x: dict, s: Shapes, peaks) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def wall_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Host-clock ms of ``fn`` followed by a device synchronize, the mean
+    over ``iters`` calls after ``warmup``."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def stage1_breakdown(cache, tids, tw, k: int) -> dict:
+    """One device stage-1 dispatch of ``cache.score_topk`` in its parts:
+    padding and scaling on the host, the host-to-device copy (host
+    clock, synchronized), the top-k launch, which selects and merges on
+    the card (CUDA events: eager, and by graph replay for its device
+    time), the device-to-host copy, and the whole dispatch (host clock,
+    synchronized). ``select_full_ms`` times what the selection was
+    before the top-k launch: one stable sort of the (B, n_docs) scores
+    of the scores launch."""
+    from repro_torch.kernels.fused_rerank.ref import stable_topk
+    from repro_torch.kernels.splade_score.ops import (splade_row_scores_batch,
+                                                      splade_row_topk_packed)
+
+    def host():
+        return cache.scaled_weights(*cache.pad_queries(tids, tw))
+
+    rows_np, w_np = host()
+    rows, w = cache.upload(rows_np, w_np)
+    k_eff = min(k, cache.n_docs)
+    args = (cache.row_pids, cache.row_imps, rows, w)
+
+    def kernel():
+        return splade_row_topk_packed(*args, n_docs=cache.n_docs, k=k_eff)
+
+    packed = kernel()
+    scores = splade_row_scores_batch(*args, n_docs=cache.n_docs)
+    return {"B": len(tids), "k": k,
+            "host_ms": wall_ms(host),
+            "h2d_ms": wall_ms(lambda: cache.upload(rows_np, w_np)),
+            "kernel_ms": cuda_time_ms(kernel, 20),
+            "kernel_graph_ms": graph_time_ms(kernel),
+            "d2h_ms": wall_ms(lambda: cache.finalize_topk(
+                (packed, k_eff, len(tids), k))),
+            "dispatch_ms": wall_ms(lambda: cache.score_topk(tids, tw, k)),
+            "select_full_ms": cuda_time_ms(
+                lambda: stable_topk(scores, k_eff), 20)}
+
+
 def time_kernels(rng, s: Shapes, device, peaks, path: pathlib.Path,
                  topics: np.ndarray, seed: int) -> dict:
     """CUDA-event times of each kernel, its plain version and (where one
@@ -648,7 +807,9 @@ def time_kernels(rng, s: Shapes, device, peaks, path: pathlib.Path,
     from repro_torch.kernels.fused_rerank.ref import fused_rerank_ref
     from repro_torch.kernels.maxsim.ops import maxsim_scores_batch
     from repro_torch.kernels.maxsim.ref import maxsim_scores_ref
-    from repro_torch.kernels.splade_score.ops import splade_row_scores_batch
+    from repro_torch.kernels.fused_rerank.ref import stable_topk
+    from repro_torch.kernels.splade_score.ops import (splade_row_scores_batch,
+                                                      splade_row_topk_batch)
     from repro_torch.kernels.splade_score.ref import (
         splade_row_scores_batch_ref)
 
@@ -665,16 +826,26 @@ def time_kernels(rng, s: Shapes, device, peaks, path: pathlib.Path,
                 "plain": lambda: decompress_maxsim_ref(*t, *tables, 4,
                                                        x["q_valid"])}
 
-    def measure(fns, bound_fn, library=None):
+    def measure(fns, bound_fn, library=None, graph=False):
         # in turns — plain, kernel, library, library, kernel, plain — so
         # that drift on the card does not favour one of them; each
-        # number is the mean of its two turns, both turns are kept
-        order = [("plain_ms", fns["plain"], 10), ("ms", fns["ms"], 20)]
+        # number is the mean of its two turns, both turns are kept.
+        # ``ms`` and ``library_ms`` are eager loops, every kernel's
+        # yardstick; with ``graph`` the kernel and the library call are
+        # also timed by CUDA-graph replay (graph_ms, library_graph_ms:
+        # their device time without the host's enqueue)
+        order = [("plain_ms", fns["plain"], cuda_time_ms, 10)]
+        timed = [("ms", fns["ms"])]
         if library is not None:
-            order.append(("library_ms", library, 20))
-        turns = {name: [] for name, _, _ in order}
-        for name, fn, iters in order + order[::-1]:
-            turns[name].append(cuda_time_ms(fn, iters))
+            timed.append(("library_ms", library))
+        for name, fn in timed:
+            order.append((name, fn, cuda_time_ms, 20))
+            if graph:
+                order.append((name.replace("ms", "graph_ms"), fn,
+                              graph_time_ms, 20))
+        turns = {name: [] for name, _, _, _ in order}
+        for name, fn, timer, iters in order + order[::-1]:
+            turns[name].append(timer(fn, iters))
         out = {name: sum(t) / len(t) for name, t in turns.items()}
         out.setdefault("library_ms", None)
         return dict(out, turns=turns, bound=bound_fn())
@@ -710,7 +881,7 @@ def time_kernels(rng, s: Shapes, device, peaks, path: pathlib.Path,
                                               s.query_terms))
 
     def splade_fns(rows, w):
-        args = (cache.pids, cache.imps, rows, w)
+        args = (cache.row_pids, cache.row_imps, rows, w)
         # the single PyTorch call that computes the same function: one
         # index_add_ of the masked entries into the flattened scores
         B = rows.shape[0]
@@ -728,13 +899,35 @@ def time_kernels(rng, s: Shapes, device, peaks, path: pathlib.Path,
                     *args, cache.n_docs)},
                 lambda: scores.index_add_(0, target, vals))
 
+    stids, stw = (list(a) for a in topic_terms(
+        sub_rng(seed, "splade breakdown"), topics, s.B, s.query_terms))
+    out["stage1"] = {"batch": stage1_breakdown(cache, stids, stw, s.C),
+                     "b1": stage1_breakdown(cache, stids[:1], stw[:1], s.C)}
+    log(f"stage-1 breakdown: {out['stage1']}")
     fns, lib = splade_fns(rows, w)
     fns1, lib1 = splade_fns(rows[2:3], w[2:3])
     out["splade_score"] = {
         "batch": measure(fns, lambda: splade_bound(cache, rows, w, peaks),
-                         library=lib),
+                         library=lib, graph=True),
         "b1": measure(fns1, lambda: splade_bound(cache, rows[2:3], w[2:3],
-                                                 peaks), library=lib1)}
+                                                 peaks), library=lib1,
+                      graph=True)}
+
+    def topk_fns(rows, w):
+        # the top-k launch (per-block candidates and their merge); its
+        # plain version: the scores and one stable sort of them; no
+        # single PyTorch call does either
+        args = (cache.row_pids, cache.row_imps, rows, w)
+        kw = dict(n_docs=cache.n_docs, k=s.C)
+        return {"ms": lambda: splade_row_topk_batch(*args, **kw),
+                "plain": lambda: stable_topk(splade_row_scores_batch_ref(
+                    *args, cache.n_docs), s.C)}
+
+    out["splade_topk"] = {
+        at: measure(topk_fns(r, ww), lambda r=r, ww=ww: splade_bound(
+            cache, r, ww, peaks, s.C), graph=True)
+        for at, (r, ww) in (("batch", (rows, w)),
+                            ("b1", (rows[2:3], w[2:3])))}
     return out
 
 
@@ -785,8 +978,8 @@ def main(argv=None) -> int:
         log(f"phase 3 index: {s.n_docs} docs, {n_tokens} tokens, "
             f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        err["splade_score"] = check_splade(sub_rng(args.seed, "splade"), s,
-                                           path, topics, device)
+        err.update(check_splade(sub_rng(args.seed, "splade"), s, path,
+                                topics, device))
         log(f"phase 3 splade kernel vs plain: "
             f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
@@ -807,6 +1000,9 @@ def main(argv=None) -> int:
         "splade_score": (
             "src/repro_torch/kernels/csrc/splade_score.cu",
             "src/repro/kernels/splade_score/splade_score.py:97"),
+        "splade_topk": (
+            "src/repro_torch/kernels/csrc/splade_score.cu",
+            "src/repro/kernels/splade_score/splade_score.py:97"),
         "maxsim": (
             "src/repro_torch/kernels/csrc/maxsim.cu",
             "src/repro/kernels/maxsim/maxsim.py:83"),
@@ -823,6 +1019,8 @@ def main(argv=None) -> int:
                 "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": t["library_ms"],
                 "turns_ms": t["turns"],
+                **{n: t[n] for n in ("graph_ms", "library_graph_ms")
+                   if n in t},
                 "launches_per_batch": {
                     b: served[b][0]["launches_per_batch"][kname]
                     for b in served},
@@ -837,6 +1035,8 @@ def main(argv=None) -> int:
             "max_abs_err": err[kname], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": t["library_ms"]})
+    print(json.dumps({"phase": "stage1_breakdown", **times["stage1"],
+                      "card": name, "power_limit": limit}), flush=True)
     for backend, lines in served.items():
         print(json.dumps({"phase": "serve", "splade_backend": backend,
                           "runs": lines, "card": name,

@@ -14,6 +14,9 @@ lost, which is why the serving path runs the kernel there.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.fused_rerank.ref import stable_topk
 
 
 def splade_row_scores_batch_ref(row_pids, row_imps, rows, weights,
@@ -56,3 +59,33 @@ def splade_block_scores_ref(post_pids, post_imps, term_weights,
     """One query: (Qt, max_df) postings, (Qt,) weights → (n_docs,)."""
     return splade_block_scores_batch_ref(post_pids[None], post_imps[None],
                                          term_weights[None], n_docs)[0]
+
+
+def block_topk_ref(scores, k: int, block_d: int):
+    """The top-k launch's per-block candidates from (B, n_docs) scores:
+    for each block of ``block_d`` docs, its kb = min(k, docs in block)
+    docs of rank < kb by (score desc, pid asc), in pid order, then
+    (−inf, −1) up to min(k, block_d) → (scores, int32 pids), each
+    (B, n_blocks · min(k, block_d)), blocks in pid order."""
+    B, n_docs = scores.shape
+    n_blocks = -(-n_docs // block_d)
+    kb_max = min(k, block_d)
+    padded = F.pad(scores, (0, n_blocks * block_d - n_docs),
+                   value=float("-inf")).view(B, n_blocks, block_d)
+    _, idx = stable_topk(padded, kb_max)
+    idx, _ = idx.sort(dim=-1)                       # pid order
+    pids = idx + torch.arange(n_blocks, device=scores.device).view(
+        1, n_blocks, 1) * block_d
+    vals = padded.gather(-1, idx)
+    pad = pids >= n_docs                            # the ragged last block
+    return (vals.masked_fill(pad, float("-inf")).view(B, -1),
+            pids.masked_fill(pad, -1).to(torch.int32).view(B, -1))
+
+
+def merge_block_topk_ref(cand_scores, cand_pids, k: int):
+    """Per-block candidates (blocks in pid order, each in pid order) →
+    the top-``k`` by (score desc, pid asc), as ``lax.top_k`` orders
+    them, by one stable descending sort → (pids (B, k) int32, scores
+    (B, k) f32): the plain version of the top-k launch's merge."""
+    vals, order = stable_topk(cand_scores, k)
+    return cand_pids.gather(-1, order), vals

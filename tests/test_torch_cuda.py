@@ -16,6 +16,8 @@ CPU and to the host scorer, MaxSim on decoded embeddings to
 decompress+MaxSim.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -33,10 +35,14 @@ from repro_torch.kernels.fused_rerank.ops import fused_rerank_topk_batch
 from repro_torch.kernels.fused_rerank.ref import stable_topk
 from repro_torch.kernels.maxsim.ops import maxsim_scores, maxsim_scores_batch
 from repro_torch.kernels.maxsim.ref import maxsim_scores_ref
-from repro_torch.kernels.splade_score.ops import (splade_block_scores,
-                                                  splade_block_scores_batch,
-                                                  splade_row_scores_batch)
-from repro_torch.kernels.splade_score.ref import splade_block_scores_batch_ref
+from repro_torch.kernels.splade_score.ops import (
+    TOPK_BLOCK_DOCS, sort_rows, splade_block_scores,
+    splade_block_scores_batch, splade_block_topk_batch,
+    splade_row_block_candidates, splade_row_scores_batch,
+    splade_row_topk_batch)
+from repro_torch.kernels.splade_score.ref import (block_topk_ref,
+                                                  splade_block_scores_batch_ref,
+                                                  splade_row_scores_batch_ref)
 from repro_torch.serving.engine import ServeEngine
 from repro_torch.testing import REF_MARGIN, assert_topk_match
 
@@ -192,6 +198,90 @@ def test_splade_kernel_matches_plain(cuda, B, Qt, max_df, n_docs, imp):
     assert torch.equal(one, got[B - 1])
 
 
+def _bits(t):
+    return t.cpu().numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("entry", ["row_scores", "gathered_batch",
+                                   "gathered_one"])
+def test_splade_scores_on_unsorted_rows(cuda, entry):
+    """The scores entry points on unsorted gathered rows (repeated pids,
+    pads in the middle, pids past n_docs, a ragged last doc block): the
+    row entry on the rows sorted by ``sort_rows``, and the gathered
+    entries, which sort them stably themselves; each equals the plain
+    version on the unsorted rows bit for bit, in one launch."""
+    rng = np.random.default_rng(7)
+    B, Qt, max_df, n_docs = 3, 6, 700, 9000
+    pids = rng.integers(-1, n_docs + 50, (B, Qt, max_df)).astype(np.int32)
+    pids[:, :, ::7] = pids[:, :, 1::7][:, :, :pids[:, :, ::7].shape[2]]
+    assert (np.diff(pids, axis=-1) < 0).any()
+    imps = rng.integers(1, 256, (B, Qt, max_df)).astype(np.uint8)
+    w = rng.random((B, Qt), np.float32)
+    w[1] = 0.0                                     # an all-zero query
+    cpu = tuple(map(torch.from_numpy, (pids, imps, w)))
+    dev = tuple(t.to(cuda) for t in cpu)
+    want = splade_block_scores_batch_ref(*cpu, n_docs)
+    before = splade_row_scores_batch.launches
+    if entry == "row_scores":
+        sp, si = sort_rows(dev[0].view(B * Qt, max_df),
+                           dev[1].view(B * Qt, max_df))
+        rows = torch.arange(B * Qt, dtype=torch.int32,
+                            device=cuda).view(B, Qt)
+        got = splade_row_scores_batch(sp, si, rows, dev[2], n_docs=n_docs)
+    elif entry == "gathered_batch":
+        got = splade_block_scores_batch(*dev, n_docs=n_docs)
+    else:
+        got = splade_block_scores(*(t[B - 1] for t in dev),
+                                  n_docs=n_docs)[None]
+        want = want[B - 1:]
+    assert splade_row_scores_batch.launches == before + 1
+    np.testing.assert_array_equal(_bits(got), want.numpy().view(np.uint32))
+    if entry != "gathered_one":
+        assert (got[1] == 0).all()
+
+
+@pytest.mark.parametrize("n_docs", [3 * TOPK_BLOCK_DOCS - 777,
+                                    2 * TOPK_BLOCK_DOCS])
+def test_splade_topk_matches_plain(cuda, n_docs):
+    """The top-k launch against its plain version bit for bit — its
+    per-block candidates and its merged top-k — for k around the block
+    size, with a ragged last block (or none), quantised impacts that tie
+    often, most docs at zero and an all-zero query."""
+    rng = np.random.default_rng(n_docs)
+    R, max_df, B, Qt = 64, 600, 4, 8
+    pids = np.sort(rng.integers(0, n_docs, (R, max_df)), axis=1)
+    pids[:, max_df - 50:] = -1                     # pads last
+    imps = rng.integers(1, 4, (R, max_df)).astype(np.uint8)
+    rows = rng.integers(-1, R, (B, Qt)).astype(np.int32)
+    w = rng.choice(np.float32([0.0, 0.5, 1.0]), (B, Qt))
+    w[2] = 0.0                                     # an all-zero query
+    cpu = (torch.from_numpy(pids.astype(np.int32)), torch.from_numpy(imps),
+           torch.from_numpy(rows), torch.from_numpy(w))
+    dev = tuple(t.to(cuda) for t in cpu)
+    ordered = splade_row_scores_batch_ref(*cpu, n_docs)
+    for k in (1, 200, TOPK_BLOCK_DOCS - 1, TOPK_BLOCK_DOCS,
+              TOPK_BLOCK_DOCS + 1, n_docs):
+        before = splade_row_topk_batch.launches
+        cs, cp = splade_row_block_candidates(*dev, n_docs=n_docs, k=k)
+        assert splade_row_topk_batch.launches == before + 1
+        ws, wp = block_topk_ref(ordered, k, TOPK_BLOCK_DOCS)
+        np.testing.assert_array_equal(cp.cpu().numpy(), wp.numpy())
+        np.testing.assert_array_equal(_bits(cs), _bits(ws))
+        tp, ts = splade_row_topk_batch(*dev, n_docs=n_docs, k=k)
+        assert splade_row_topk_batch.launches == before + 2
+        hp, hs = splade_row_topk_batch(*cpu, n_docs=n_docs, k=k)
+        np.testing.assert_array_equal(tp.cpu().numpy(), hp.numpy())
+        np.testing.assert_array_equal(_bits(ts), _bits(hs))
+        np.testing.assert_array_equal(tp[2].cpu().numpy(), np.arange(k))
+    gp, gs = splade_block_topk_batch(dev[0][dev[2].long().clamp(min=0)],
+                                     dev[1][dev[2].long().clamp(min=0)],
+                                     dev[3] * (dev[2] >= 0), n_docs=n_docs,
+                                     k=300)
+    hp, hs = splade_row_topk_batch(*cpu, n_docs=n_docs, k=300)
+    np.testing.assert_array_equal(gp.cpu().numpy(), hp.numpy())
+    np.testing.assert_array_equal(_bits(gs), _bits(hs))
+
+
 def test_splade_device_cache_equals_host_bitwise(cuda, index_dir):
     idx = SpladeIndex.load(index_dir / "splade")
     rng = np.random.default_rng(2)
@@ -258,8 +348,30 @@ def test_device_stage1_serving_matches_cpu(cuda, index_dir):
     np.testing.assert_array_equal(dp, hp)
     np.testing.assert_array_equal(ds.view(np.uint32), hs.view(np.uint32))
     for method in METHODS:
-        before = splade_row_scores_batch.launches
+        before = splade_row_topk_batch.launches
         got = gpu.search_batch(method, **kw)
-        assert splade_row_scores_batch.launches == before + 1
+        assert splade_row_topk_batch.launches == before + 1
         want = cpu.search_batch(method, **dict(kw, k=kw["k"] + REF_MARGIN))
         assert_topk_match(want[1], want[0], got[1], got[0], what=method)
+
+
+def test_splade_device_cache_sorts_unsorted_rows(cuda, index_dir):
+    """An untruncated index whose postings are out of pid order (each
+    term's reversed): the cache sorts its rows for the kernel's search,
+    and the device stage 1 still equals the host scorer bit for bit."""
+    idx = SpladeIndex.load(index_dir / "splade")
+    off = idx.term_offsets
+    order = np.concatenate([np.arange(off[t + 1] - 1, off[t] - 1, -1)
+                            for t in range(idx.vocab)]).astype(np.int64)
+    rev = dataclasses.replace(idx, pids=np.asarray(idx.pids)[order],
+                              impacts=np.asarray(idx.impacts)[order])
+    cache = SpladeDeviceCache(rev, device=cuda)
+    assert cache.truncated_terms == 0 and cache.row_pids is not cache.pids
+    rng = np.random.default_rng(3)
+    tids = [rng.integers(0, 500, int(rng.integers(1, 12))) for _ in range(9)]
+    tw = [rng.uniform(0.1, 2, len(t)).astype(np.float32) for t in tids]
+    for k in (60, rev.n_docs + 7):
+        dp, ds = cache.score_topk(tids, tw, k)
+        hp, hs = rev.score_batch_host(tids, tw, k)
+        np.testing.assert_array_equal(dp, hp)
+        np.testing.assert_array_equal(ds.view(np.uint32), hs.view(np.uint32))

@@ -14,6 +14,10 @@ device backend is held bit for bit: it adds each doc's entries in the
 host's order, with the host's roundings.
 """
 
+import dataclasses
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -37,10 +41,16 @@ from repro_torch.core.plaid import PLAIDSearcher
 from repro_torch.index.builder import ColBERTIndex
 from repro_torch.index.splade_device import SpladeDeviceCache
 from repro_torch.index.splade_index import SpladeIndex, build_splade_index
-from repro_torch.kernels.splade_score.ops import (splade_block_scores,
-                                                  splade_block_scores_batch,
-                                                  splade_block_topk_batch)
-from repro_torch.kernels.splade_score.ref import splade_block_scores_ref
+from repro_torch.kernels.fused_rerank.ref import stable_topk
+from repro_torch.kernels.splade_score import ops as ops_module
+from repro_torch.kernels.splade_score.ops import (
+    SCORE_BLOCK_DOCS, TOPK_BLOCK_DOCS, sort_rows, splade_block_scores, splade_block_scores_batch,
+    splade_block_topk_batch, splade_row_block_candidates,
+    splade_row_topk_batch, splade_row_topk_packed)
+from repro_torch.kernels.splade_score.ref import (block_topk_ref,
+                                                  merge_block_topk_ref,
+                                                  splade_block_scores_ref,
+                                                  splade_row_scores_batch_ref)
 from repro_torch.serving.engine import Request, ServeEngine
 from repro_torch.testing import REF_MARGIN, assert_topk_match
 
@@ -185,6 +195,231 @@ def test_device_cache_equals_host_scorer_bitwise(tidx, queries, k):
     dp, ds = SpladeDeviceCache(tidx, device="cpu").score_topk(tids, tw, k)
     np.testing.assert_array_equal(dp, hp)
     np.testing.assert_array_equal(ds.view(np.uint32), hs.view(np.uint32))
+
+
+# ---------------------------------------------------------------------------
+# the pid-sorted rows the kernel searches, and the top-k entry point
+# ---------------------------------------------------------------------------
+
+def _cache_rows(cache, tids, tw):
+    rows, w = cache.scaled_weights(*cache.pad_queries(tids, tw))
+    return torch.from_numpy(rows), torch.from_numpy(w)
+
+
+@pytest.mark.parametrize("max_df", [None, 4])
+def test_sorted_copy_scores_equal_padded_layout(tidx, queries, max_df):
+    """The cache's pid-sorted rows give, through the plain version, the
+    scores of the ``as_padded`` layout bit for bit: each doc's entries
+    keep their (term slot, posting slot) order. With truncation the
+    layout is unsorted and the copy differs from it."""
+    cache = SpladeDeviceCache(tidx, max_df=max_df, device="cpu")
+    def is_sorted(pids):
+        key = pids.numpy().view(np.uint32).astype(np.int64)
+        return bool((np.diff(key, axis=1) >= 0).all())
+
+    assert is_sorted(cache.row_pids)
+    assert is_sorted(cache.pids) == (max_df is None)
+    assert (cache.row_pids is cache.pids) == (max_df is None)
+    rows, w = _cache_rows(cache, *queries)
+    got = splade_row_scores_batch_ref(cache.row_pids, cache.row_imps, rows,
+                                      w, cache.n_docs)
+    want = splade_row_scores_batch_ref(cache.pids, cache.imps, rows, w,
+                                       cache.n_docs)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.numpy().view(np.uint32))
+
+
+def test_cache_sorts_unsorted_untruncated_rows(tidx, queries):
+    """An index whose postings are not pid-sorted (each term's reversed)
+    and not truncated: the cache sorts its rows for the kernel's search,
+    and still equals the host scorer bit for bit."""
+    off = tidx.term_offsets
+    order = np.concatenate([np.arange(off[t + 1] - 1, off[t] - 1, -1)
+                            for t in range(tidx.vocab)]).astype(np.int64)
+    rev = dataclasses.replace(tidx, pids=tidx.pids[order],
+                              impacts=tidx.impacts[order])
+    cache = SpladeDeviceCache(rev, device="cpu")
+    assert cache.truncated_terms == 0 and cache.row_pids is not cache.pids
+    key = cache.row_pids.numpy().view(np.uint32).astype(np.int64)
+    assert (np.diff(key, axis=1) >= 0).all()
+    tids, tw = queries
+    for k in (50, rev.n_docs + 5):
+        dp, ds = cache.score_topk(tids, tw, k)
+        hp, hs = rev.score_batch_host(tids, tw, k)
+        np.testing.assert_array_equal(dp, hp)
+        np.testing.assert_array_equal(ds.view(np.uint32), hs.view(np.uint32))
+
+
+def test_sort_rows_is_stable_on_repeated_pids():
+    """A hand-made row with repeated pids, −1 pads first and last, and
+    impacts that make the order of additions visible: the sorted row
+    keeps each pid's entries in posting order, −1 pads last, and scores
+    as the unsorted row does, bit for bit."""
+    pids = torch.tensor([[-1, 7, 3, 7, 0, 3, 7, -1, 2]], dtype=torch.int32)
+    imps = torch.tensor([[9.0, 1e8, 1.0, -1e8, 5.0, 3.0, 1.0, 9.0, 2.0]])
+    sp, si = sort_rows(pids, imps)
+    assert sp.tolist() == [[0, 2, 3, 3, 7, 7, 7, -1, -1]]
+    assert si.tolist() == [[5.0, 2.0, 1.0, 3.0, 1e8, -1e8, 1.0, 9.0, 9.0]]
+    rows = torch.zeros((1, 1), dtype=torch.int32)
+    w = torch.ones((1, 1))
+    got = splade_row_scores_batch_ref(sp, si, rows, w, 8)
+    want = splade_row_scores_batch_ref(pids, imps, rows, w, 8)
+    assert got[0, 7].item() == 1.0          # (1e8 - 1e8) + 1, in order
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("k", [1, 50, 200, "n_docs", "n_docs+5"])
+def test_topk_entry_matches_jax_and_host(tidx, queries, k):
+    """The top-k entry point on the CPU (the plain version: the scores
+    and one stable sort) against ``lax.top_k`` over the JAX reference
+    scores, and bit for bit against the host scorer; the per-block
+    candidates and their merge (the launch's two steps) give the same
+    answer, at the kernel's block size and at sizes that cut this index
+    into many blocks."""
+    n_docs = tidx.n_docs
+    k = {"n_docs": n_docs, "n_docs+5": n_docs + 5}.get(k, k)
+    k_eff = min(k, n_docs)
+    tids, tw = queries
+    cache = SpladeDeviceCache(tidx, device="cpu")
+    rows, w = _cache_rows(cache, tids, tw)
+    args = (cache.row_pids, cache.row_imps, rows, w)
+    tp, ts = splade_row_topk_batch(*args, n_docs=n_docs, k=k_eff)
+    assert tp.dtype == torch.int32 and tp.shape == (len(tids), k_eff)
+    hp, hs = tidx.score_batch_host(tids, tw, k)
+    np.testing.assert_array_equal(tp.numpy(), hp[:, :k_eff])
+    np.testing.assert_array_equal(ts.numpy().view(np.uint32),
+                                  hs[:, :k_eff].view(np.uint32))
+    dp, ds = cache.score_topk(tids, tw, k)
+    np.testing.assert_array_equal(dp, hp)
+    np.testing.assert_array_equal(ds.view(np.uint32), hs.view(np.uint32))
+    live = (rows >= 0).numpy()
+    safe = np.where(live, rows.numpy(), 0)
+    post_pids = np.where(live[..., None], cache.pids.numpy()[safe], -1)
+    post_imps = cache.imps.numpy()[safe].astype(np.float32)
+    jp, js = j_topk_batch(jnp.asarray(post_pids), jnp.asarray(post_imps),
+                          jnp.asarray(w.numpy()), n_docs=n_docs,
+                          k=min(k_eff + REF_MARGIN, n_docs), impl="ref")
+    assert_topk_match(np.asarray(js), np.asarray(jp), ts.numpy(),
+                      tp.numpy(), **KTOL)
+    packed = splade_row_topk_packed(*args, n_docs=n_docs, k=k_eff)
+    assert torch.equal(packed[0], tp)
+    assert torch.equal(packed[1], ts.view(torch.int32))
+    cs, cp = splade_row_block_candidates(*args, n_docs=n_docs, k=k_eff)
+    n_blocks = -(-n_docs // TOPK_BLOCK_DOCS)
+    assert cs.shape == cp.shape == (len(tids),
+                                    n_blocks * min(k_eff, TOPK_BLOCK_DOCS))
+    mp, ms = merge_block_topk_ref(cs, cp, k_eff)
+    assert torch.equal(mp, tp) and torch.equal(ms, ts)
+    scores = splade_row_scores_batch_ref(*args, n_docs)
+    for block_d in (16, 100):
+        mp, ms = merge_block_topk_ref(*block_topk_ref(scores, k_eff, block_d),
+                                      k_eff)
+        assert torch.equal(mp, tp) and torch.equal(ms, ts)
+
+
+def test_block_sizes_match_kernel_source():
+    """The wrappers size the top-k launch's buffers by the block sizes
+    the kernel fixes: the two must agree."""
+    src = (pathlib.Path(ops_module.__file__).parents[1] / "csrc"
+           / "splade_score.cu").read_text()
+    for const, name in ((SCORE_BLOCK_DOCS, "kScoreBlockD"),
+                        (TOPK_BLOCK_DOCS, "kTopkBlockD")):
+        assert re.search(rf"\b{name} = {const};", src), name
+
+
+@pytest.mark.parametrize("n_docs,block_d,k", [
+    (50, 16, 5), (50, 16, 16), (50, 16, 17), (64, 16, 3), (50, 16, 50),
+])
+def test_block_candidates_keep_ties_and_zeros(n_docs, block_d, k):
+    """Per-block candidates over quantised scores that tie often, with
+    most docs at zero and an all-zero query: each block emits its
+    min(k, docs in block) best in pid order, then (−inf, −1), and the
+    merge equals one stable sort of the whole rows — so the zero-score
+    docs of lowest pid fill the top-k when fewer than k docs score."""
+    rng = np.random.default_rng(n_docs + block_d + k)
+    scores = np.where(rng.random((3, n_docs)) < 0.3,
+                      rng.integers(1, 4, (3, n_docs)), 0).astype(np.float32)
+    scores[1] = 0.0
+    scores = torch.from_numpy(scores)
+    cs, cp = block_topk_ref(scores, k, block_d)
+    kb = min(k, block_d)
+    cs = cs.view(3, -1, kb)
+    cp = cp.view(3, -1, kb)
+    for blk in range(cs.shape[1]):
+        lo, hi = blk * block_d, min((blk + 1) * block_d, n_docs)
+        n = min(k, hi - lo)
+        _, idx = stable_topk(scores[:, lo:hi], n)
+        want = idx.sort(dim=-1)[0] + lo
+        assert torch.equal(cp[:, blk, :n].long(), want)
+        assert torch.equal(cs[:, blk, :n], scores.gather(1, want))
+        assert (cp[:, blk, n:] == -1).all()
+        assert (cs[:, blk, n:] == float("-inf")).all()
+    mp, ms = merge_block_topk_ref(cs.view(3, -1), cp.view(3, -1),
+                                  min(k, n_docs))
+    vals, idx = stable_topk(scores, min(k, n_docs))
+    assert torch.equal(mp.long(), idx) and torch.equal(ms, vals)
+    assert torch.equal(mp[1].long(), torch.arange(min(k, n_docs)))
+
+
+def _pad_queries_loop(vocab, term_ids, term_weights):
+    """The per-query loop ``pad_queries`` replaced, kept as the
+    reference of its output."""
+    B = len(term_ids)
+    qt = max((len(np.atleast_1d(t)) for t in term_ids), default=1)
+    tids = np.full((B, max(qt, 1)), -1, np.int32)
+    w = np.zeros((B, max(qt, 1)), np.float32)
+    for i in range(B):
+        t = np.atleast_1d(np.asarray(term_ids[i], np.int32))
+        tw = np.atleast_1d(np.asarray(term_weights[i], np.float32))
+        if (t >= vocab).any():
+            raise IndexError(f"term id {int(t.max())} out of range "
+                             f"for vocab {vocab} (query {i})")
+        tids[i, :len(t)] = t
+        w[i, :len(tw)] = tw
+    return tids, w
+
+
+@pytest.mark.parametrize("case", ["ragged", "empty", "all_zero", "none",
+                                  "scalar"])
+def test_pad_queries_matches_loop(tidx, queries, case):
+    cache = SpladeDeviceCache(tidx, device="cpu")
+    tids, tw = (list(q[:7]) for q in queries)
+    if case == "ragged":
+        tids[2], tw[2] = tids[2][:1], tw[2][:1]
+        tids[4] = np.asarray(tids[4], np.int64)       # other dtypes
+        tw[4] = list(np.asarray(tw[4], np.float64))
+    elif case == "empty":
+        tids[1] = np.zeros(0, np.int32)
+        tw[1] = np.zeros(0, np.float32)
+        tids[6] = np.array([-1, 3], np.int32)         # a negative id
+    elif case == "all_zero":
+        tw = [np.zeros_like(t, np.float32) for t in tw]
+    elif case == "none":
+        tids, tw = [np.zeros(0, np.int32)] * 2, [np.zeros(0, np.float32)] * 2
+    else:
+        tids, tw = [np.int32(5), [1, 2]], [np.float32(0.5), [1.0, 2.0]]
+    got = cache.pad_queries(tids, tw)
+    want = _pad_queries_loop(tidx.vocab, tids, tw)
+    for g, e in zip(got, want):
+        assert g.dtype == e.dtype and g.shape == e.shape
+        np.testing.assert_array_equal(g, e)
+    for g, e in zip(cache.pad_queries([], []),
+                    _pad_queries_loop(tidx.vocab, [], [])):
+        assert g.dtype == e.dtype and g.shape == e.shape == (0, 1)
+
+
+def test_pad_queries_rejects_out_of_vocabulary(tidx, queries):
+    cache = SpladeDeviceCache(tidx, device="cpu")
+    tids, tw = (list(q[:5]) for q in queries)
+    tids[3] = np.array([1, tidx.vocab + 7, 2], np.int32)
+    tw[3] = np.ones(3, np.float32)
+    with pytest.raises(IndexError) as got:
+        cache.pad_queries(tids, tw)
+    with pytest.raises(IndexError) as want:
+        _pad_queries_loop(tidx.vocab, tids, tw)
+    assert str(got.value) == str(want.value)
+    assert "query 3" in str(got.value)
 
 
 # ---------------------------------------------------------------------------
