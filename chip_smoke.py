@@ -10,8 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. kernels — hold decompress_maxsim and fused_rerank, and their B=1
              launches, against their plain PyTorch versions on the card
              at full width (B=32, Lq=32, C=200, Ld=180, d=128, K=131072;
-             nbits 4 and 2; ragged valid and cmask, k > C, empty C);
-             fused must equal split bit for bit. Then MaxSim over fp32
+             nbits 4 and 2; ragged valid and cmask, k < C and k > C,
+             empty C); fused must equal split bit for bit, and a B=1
+             launch its batch row. Then MaxSim over fp32
              embeddings at the same width (ragged validity, an
              all-invalid doc) against its plain version, and bit for bit
              against decompress_maxsim on the decoded embeddings;
@@ -38,9 +39,10 @@ Phases, in order; any failure raises and the script exits non-zero:
              its path and no other, and the device stage 1 must equal the
              host's bit for bit on the requests' terms;
 5. time    — time each kernel with CUDA events at the serve shapes, and
-             each at B=1, in an eager loop (the SPLADE kernel's two
-             entry points and ``index_add_`` also by CUDA-graph replay,
-             as ``graph_ms`` and ``library_graph_ms``); and one
+             each at B=1, in an eager loop (the rerank tail's two
+             kernels, the SPLADE kernel's two entry points and
+             ``index_add_`` also by CUDA-graph replay, as ``graph_ms``
+             and ``library_graph_ms``); and one
              device stage-1 dispatch in its parts (host padding, the
              copy in, the top-k launch, the copy out, the whole
              dispatch, and the full sort the launch replaced).
@@ -215,19 +217,36 @@ def check_kernels(rng, s: Shapes, device) -> dict:
             log(f"fused_rerank nbits={nbits} k={k}: max |err| {e:.3g}, "
                 "fused == split")
 
-        # B=1 launches (the single-query entry points) equal their batch
-        # row bit for bit
-        one = decompress_maxsim_scores(*(t[3] for t in tile), *tables,
-                                       nbits=nbits, q_valid=x["q_valid"][3])
-        assert torch.equal(one, got[3]), "B=1 decompress_maxsim != batch row"
-        kk = min(100, s.C)
-        v1, i1 = fused_rerank_topk(*(t[3] for t in tile), x["cmask"][3],
-                                   *tables, nbits=nbits, k=kk,
-                                   q_valid=x["q_valid"][3])
-        sv, si = stable_topk(got[3].masked_fill(~x["cmask"][3],
-                                                float("-inf")), kk)
-        assert torch.equal(i1.long(), si) and torch.equal(v1, sv), \
-            "B=1 fused_rerank != split row"
+        # B=1 launches (the single-query entry points) at full width:
+        # against their plain versions, and bit for bit against their
+        # batch row
+        for b in (0, 3):
+            row = tuple(t[b] for t in tile)
+            one = decompress_maxsim_scores(*row, *tables, nbits=nbits,
+                                           q_valid=x["q_valid"][b])
+            want1 = decompress_maxsim_ref(*row, *tables, nbits,
+                                          x["q_valid"][b])
+            np.testing.assert_allclose(
+                one.cpu().numpy(), want1.cpu().numpy(), rtol=RTOL,
+                atol=ATOL, err_msg=f"B=1 decompress_maxsim nbits={nbits}")
+            assert torch.equal(one.view(torch.int32),
+                               got[b].view(torch.int32)), \
+                "B=1 decompress_maxsim != batch row"
+            kk = min(100, s.C)
+            v1, i1 = fused_rerank_topk(*row, x["cmask"][b], *tables,
+                                       nbits=nbits, k=kk,
+                                       q_valid=x["q_valid"][b])
+            wv, wi = fused_rerank_ref(*row, x["cmask"][b], *tables, nbits,
+                                      kk + REF_MARGIN, x["q_valid"][b])
+            assert_topk_match(wv.cpu().numpy(), wi.cpu().numpy(),
+                              v1.cpu().numpy(), i1.cpu().numpy(),
+                              what=f"B=1 fused_rerank nbits={nbits}")
+            sv, si = stable_topk(got[b].masked_fill(~x["cmask"][b],
+                                                    float("-inf")), kk)
+            assert torch.equal(i1.long(), si) and torch.equal(
+                v1.view(torch.int32), sv.view(torch.int32)), \
+                "B=1 fused_rerank != split row"
+        log(f"B=1 launches nbits={nbits}: match plain, == batch row")
 
     # empty candidate set
     x = to_dev(kernel_inputs(rng, s, 4, C=0), device)
@@ -854,11 +873,15 @@ def time_kernels(rng, s: Shapes, device, peaks, path: pathlib.Path,
     x = to_dev(kernel_inputs(rng, s, 4), device)
     x1 = rows_of(x, 3)
     out["decompress_maxsim"] = {
-        "batch": measure(tile(x, False), lambda: bound(x, s, peaks, False)),
-        "b1": measure(tile(x1, False), lambda: bound(x1, s, peaks, False))}
+        "batch": measure(tile(x, False), lambda: bound(x, s, peaks, False),
+                         graph=True),
+        "b1": measure(tile(x1, False), lambda: bound(x1, s, peaks, False),
+                      graph=True)}
     out["fused_rerank"] = {
-        "batch": measure(tile(x, True), lambda: bound(x, s, peaks, True)),
-        "b1": measure(tile(x1, True), lambda: bound(x1, s, peaks, True))}
+        "batch": measure(tile(x, True), lambda: bound(x, s, peaks, True),
+                         graph=True),
+        "b1": measure(tile(x1, True), lambda: bound(x1, s, peaks, True),
+                      graph=True)}
     del x, x1
 
     m = maxsim_inputs(sub_rng(seed, "maxsim timing"), s, device)

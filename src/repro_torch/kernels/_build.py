@@ -32,9 +32,9 @@ COMPILE_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "decompress_maxsim_launch": ([_P] * 8 + [_I] * 6 + [_P], _I),
-    "decompress_maxsim_smem_bytes": ([_I, _I], ctypes.c_size_t),
-    "fused_rerank_launch": ([_P] * 10 + [_I] * 7 + [_P], _I),
-    "fused_rerank_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
+    "decompress_maxsim_smem_bytes": ([_I] * 3, ctypes.c_size_t),
+    "fused_rerank_launch": ([_P] * 11 + [_I] * 7 + [_P], _I),
+    "fused_rerank_smem_bytes": ([_I] * 4, ctypes.c_size_t),
     "maxsim_launch": ([_P] * 5 + [_I] * 5 + [_P], _I),
     "maxsim_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "splade_score_launch": ([_P, _P, _I, _P, _P, _P] + [_I] * 4 + [_P], _I),

@@ -26,6 +26,13 @@ def as_u8(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and 16-byte aligned (the kernels read it with
+    16- and 8-byte copies): a view at an odd offset is copied."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def tile_inputs(q, packed, cids, doc_valid, q_valid, centroids,
                 bucket_weights, nbits: int):
     """Validate the batched tile arguments for a CUDA launch and return
@@ -60,6 +67,6 @@ def tile_inputs(q, packed, cids, doc_valid, q_valid, centroids,
         raise ValueError("centroids must be (K, d)")
     if bucket_weights.numel() != 1 << nbits:
         raise ValueError(f"bucket_weights must hold 2^nbits = {1 << nbits}")
-    return (q.contiguous(), packed.contiguous(), cids.contiguous(),
-            as_u8(doc_valid), as_u8(q_valid), centroids.contiguous(),
+    return (aligned(q), aligned(packed), cids.contiguous(),
+            as_u8(doc_valid), as_u8(q_valid), aligned(centroids),
             bucket_weights.contiguous())

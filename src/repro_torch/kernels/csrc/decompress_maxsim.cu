@@ -11,37 +11,22 @@
 // Bound on the H100: operations. Each valid doc token costs 2*Lq*d fp32
 // FLOPs (8,192 at Lq=32, d=128) against 69 bytes of packed codes, id
 // and valid flag, ~120 FLOP per byte, far above the ~20 FLOP/byte at
-// which the card's fp32 CUDA-core rate meets its memory rate. The
-// design keeps the decoded embedding out of device memory (decoded in
-// shared memory, one token at a time, per warp) and gives every lane a
-// query token, so a token's decode is paid once for all Lq dot
-// products. No tensor cores (IEEE fp32 is the contract), no TMA: this
-// first version is simple, one warp per candidate.
-#include "score_tile.cuh"
+// which the card's fp32 CUDA-core rate meets its memory rate. Each
+// valid token also gathers its 512-byte centroid row from a table that
+// does not fit in L2 (64 MiB at K=131,072), a second limit behind the
+// FLOPs. The design (rerank_tile.cuh): one block per candidate, or per
+// group of up to 4 when the batch fills the card, so a single query
+// spreads over C blocks; the block's 8 warps work independently, each on
+// windows of 16 token positions: it gathers the valid tokens' rows with
+// cp.async, decodes them in its own shared buffer and scores them in
+// 4 x 4 register tiles (2 FMAs per float read from shared memory, 16
+// independent chains per thread), so the SM's 16 warps hide one
+// another's gathers. The decoded embedding never reaches device memory.
+// No tensor cores (IEEE fp32 is the contract), no atomics.
+#include "rerank_tile.cuh"
 
-namespace {
-
-constexpr int kWarps = 8;  // candidates per block, one per warp
-
-__global__ void __launch_bounds__(kWarps * 32)
-decompress_maxsim_kernel(rt::TileArgs a, float* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const rt::TileSmem s = rt::carve_smem(smem, a.Lq, a.d, kWarps, warp);
-  rt::load_row(a, b, s);
-  __syncthreads();
-  const int c = blockIdx.x * kWarps + warp;
-  if (c >= a.C) return;
-  const float score = rt::score_candidate(a, b, c, s, lane);
-  if (lane == 0) out[(size_t)b * a.C + c] = score;
-}
-
-}  // namespace
-
-extern "C" size_t decompress_maxsim_smem_bytes(int Lq, int d) {
-  return rt::tile_smem_floats(Lq, d, kWarps, 0) * sizeof(float);
+extern "C" size_t decompress_maxsim_smem_bytes(int Lq, int d, int nbits) {
+  return rt::tile_bytes(Lq, d, nbits, rt::tile_shape(Lq, d, nbits, 1));
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
@@ -57,16 +42,9 @@ extern "C" int decompress_maxsim_launch(
                        static_cast<const float*>(centroids),
                        static_cast<const float*>(bucket_weights),
                        C, Ld, Lq, d, nbits};
-  const size_t smem = decompress_maxsim_smem_bytes(Lq, d);
-  cudaError_t err = cudaFuncSetAttribute(
-      decompress_maxsim_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((C + kWarps - 1) / kWarps, B);
-  decompress_maxsim_kernel<<<grid, kWarps * 32, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(rt::launch_scores(
+      a, nullptr, static_cast<float*>(out), B,
+      static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* rt_error_string(int err) {

@@ -12,45 +12,39 @@
 // Bound on the H100: operations, as for decompress_maxsim (the top-k
 // adds C^2 compares per row, 40,000 at C=200, next to 1.6 M FLOPs per
 // candidate). The TPU kernel carries a running top-k across sequential
-// grid steps; Hopper blocks run in parallel and in no order, so here
-// one block owns one query row: its warps score the row's candidates
-// into shared memory (C floats; the (B, C) score tensor never reaches
-// device memory), then every thread ranks its candidates by counting
-// the entries that beat them and writes those that rank below kk.
-// Candidate scores come from the shared tile body, so this kernel
-// equals decompress_maxsim + mask + stable sort bit for bit.
-#include "score_tile.cuh"
+// grid steps; Hopper blocks run in parallel and in no order, so the work
+// is split in two launches on one stream:
+// - scoring: decompress_maxsim's grid and tile body (rerank_tile.cuh),
+//   one block per candidate or group of candidates, with cmask: a masked
+//   candidate is not read and scores -inf. Scores go to a (B, C) f32
+//   scratch that the wrapper allocates (25.6 KB at B=32, C=200), so the
+//   fused tail's scores are the split tail's, bit for bit;
+// - selection: one block per row loads its C scores into shared memory,
+//   and each thread ranks its candidates by counting the entries that
+//   beat them, writing those that rank below kk.
+// The second launch costs one launch latency (a few microseconds) and a
+// 25.6 KB round trip through L2; it needs no counter, so calls from
+// several host threads cannot race on one.
+#include "rerank_tile.cuh"
 
 namespace {
 
-constexpr int kWarps = 16;  // warps sharing one query row
+constexpr int kSelectThreads = 256;
 
-__global__ void __launch_bounds__(kWarps * 32)
-fused_rerank_kernel(rt::TileArgs a, const uint8_t* __restrict__ cmask, int kk,
-                    float* __restrict__ out_s, int32_t* __restrict__ out_i) {
-  extern __shared__ __align__(16) float smem[];
+__global__ void __launch_bounds__(kSelectThreads)
+select_topk_kernel(const float* __restrict__ scores, int C, int kk,
+                   float* __restrict__ out_s, int32_t* __restrict__ out_i) {
+  extern __shared__ __align__(16) float row[];
   const int b = blockIdx.x;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const rt::TileSmem s = rt::carve_smem(smem, a.Lq, a.d, kWarps, warp);
-  float* scores = s.extra;  // (C,)
-  rt::load_row(a, b, s);
-  __syncthreads();
-
-  const float neg_inf = __int_as_float(static_cast<int>(0xff800000u));
-  for (int c = warp; c < a.C; c += kWarps) {
-    // a masked candidate would be set to -inf after scoring anyway
-    const bool keep = cmask[(size_t)b * a.C + c] != 0;
-    const float score = keep ? rt::score_candidate(a, b, c, s, lane) : neg_inf;
-    if (lane == 0) scores[c] = score;
+  for (int j = threadIdx.x; j < C; j += kSelectThreads) {
+    row[j] = scores[(size_t)b * C + j];
   }
   __syncthreads();
-
-  for (int j = threadIdx.x; j < a.C; j += blockDim.x) {
-    const float sj = scores[j];
+  for (int j = threadIdx.x; j < C; j += kSelectThreads) {
+    const float sj = row[j];
     int rank = 0;
-    for (int m = 0; m < a.C; ++m) {
-      const float sm = scores[m];
+    for (int m = 0; m < C; ++m) {
+      const float sm = row[m];
       rank += (sm > sj) || (sm == sj && m < j);
     }
     if (rank < kk) {
@@ -62,17 +56,20 @@ fused_rerank_kernel(rt::TileArgs a, const uint8_t* __restrict__ cmask, int kk,
 
 }  // namespace
 
-extern "C" size_t fused_rerank_smem_bytes(int Lq, int d, int C) {
-  // the score row is padded to 4 floats to keep the layout aligned
-  return rt::tile_smem_floats(Lq, d, kWarps, (C + 3) / 4 * 4) * sizeof(float);
+// The larger of the two launches' shared memory.
+extern "C" size_t fused_rerank_smem_bytes(int Lq, int d, int nbits, int C) {
+  const size_t tile = rt::tile_bytes(Lq, d, nbits, rt::tile_shape(Lq, d, nbits, 1));
+  const size_t select = (size_t)C * sizeof(float);
+  return tile > select ? tile : select;
 }
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// Launches both kernels on `stream` and returns cudaGetLastError() (0 on
+// success). `scratch` is (B, C) f32.
 extern "C" int fused_rerank_launch(
     const void* q, const void* packed, const void* cids, const void* valid,
     const void* cmask, const void* q_valid, const void* centroids,
-    const void* bucket_weights, void* out_s, void* out_i, int B, int C, int Ld,
-    int Lq, int d, int nbits, int kk, void* stream) {
+    const void* bucket_weights, void* scratch, void* out_s, void* out_i,
+    int B, int C, int Ld, int Lq, int d, int nbits, int kk, void* stream) {
   const rt::TileArgs a{static_cast<const float*>(q),
                        static_cast<const uint8_t*>(packed),
                        static_cast<const int32_t*>(cids),
@@ -81,14 +78,17 @@ extern "C" int fused_rerank_launch(
                        static_cast<const float*>(centroids),
                        static_cast<const float*>(bucket_weights),
                        C, Ld, Lq, d, nbits};
-  const size_t smem = fused_rerank_smem_bytes(Lq, d, C);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_rerank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* sc = static_cast<float*>(scratch);
+  cudaError_t err =
+      rt::launch_scores(a, static_cast<const uint8_t*>(cmask), sc, B, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_rerank_kernel<<<B, kWarps * 32, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const uint8_t*>(cmask), kk, static_cast<float*>(out_s),
-      static_cast<int32_t*>(out_i));
+  const size_t smem = (size_t)C * sizeof(float);
+  err = cudaFuncSetAttribute(select_topk_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  select_topk_kernel<<<B, kSelectThreads, smem, s>>>(
+      sc, C, kk, static_cast<float*>(out_s), static_cast<int32_t*>(out_i));
   return static_cast<int>(cudaGetLastError());
 }

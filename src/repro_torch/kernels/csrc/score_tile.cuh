@@ -1,25 +1,17 @@
-// Shared tile body of the decompress+MaxSim, fused rerank and MaxSim
-// kernels.
+// Shared MaxSim arithmetic of the port's tile kernels.
 //
-// Counterpart of `_score_tile` in the JAX package
-// (src/repro/kernels/decompress_maxsim/decompress_maxsim.py:64), which
-// both compressed-candidate TPU kernels call. Those two CUDA kernels
-// score a candidate with `score_candidate` below, so per-candidate
-// arithmetic — decode order, dot-product order over d, the
-// per-query-token max and the ascending sum over query tokens — is
-// identical in both, and the fused rerank tail equals the split tail
-// bit for bit. The MaxSim kernel over fp32 embeddings stages each raw
-// token in place of the decode and shares `token_max` and `query_sum`,
-// so on decoded embeddings it equals decompress+MaxSim bit for bit.
+// The MaxSim kernel over fp32 embeddings (maxsim.cu) runs `token_max`
+// and `query_sum` as they are below: one warp scores one candidate,
+// stages each valid doc token in a d-float shared-memory buffer, and
+// lane i takes the dot product of query token i (held in shared memory)
+// with it, sequentially over d with fmaf, keeping its running max.
 //
-// One warp scores one candidate. For each valid doc token the warp
-// decodes the token into a d-float shared-memory buffer
-// (centroids[cid] + bucket_weights[code], the centroid row read from
-// global memory through L2: a 131,072 x 128 table is 64 MiB and does
-// not fit in shared memory), then lane i takes the dot product of query
-// token i (held in shared memory) with it, sequentially over d with
-// fmaf, and keeps its running max. Arithmetic is IEEE fp32 on the CUDA
-// cores; nothing is accumulated with atomics, so results are
+// The rerank tail's kernels (decompress_maxsim.cu, fused_rerank.cu) run
+// the register-tiled body of rerank_tile.cuh, which keeps this file's
+// per-pair arithmetic — the fmaf chain over j ascending from 0.f, the
+// max from kNeg, `query_sum` itself — so on decoded embeddings MaxSim
+// equals decompress+MaxSim bit for bit. Arithmetic is IEEE fp32 on the
+// CUDA cores; nothing is accumulated with atomics, so results are
 // deterministic from run to run.
 #pragma once
 
@@ -31,17 +23,6 @@ namespace rt {
 constexpr float kNeg = -1e30f;       // masked-token sentinel (NEG)
 constexpr int kMaxLqPerLane = 4;     // query tokens per lane: Lq <= 128
 constexpr int kMaxBuckets = 16;      // 2^nbits for nbits <= 4
-
-struct TileArgs {
-  const float* q;               // (B, Lq, d) f32
-  const uint8_t* packed;        // (B, C, Ld, d*nbits/8) u8
-  const int32_t* cids;          // (B, C, Ld) i32
-  const uint8_t* valid;         // (B, C, Ld) 0/1
-  const uint8_t* q_valid;       // (B, Lq) 0/1
-  const float* centroids;       // (K, d) f32
-  const float* bucket_weights;  // (2^nbits,) f32
-  int C, Ld, Lq, d, nbits;
-};
 
 // Shared-memory layout of one block, in floats: the query rows of batch
 // row b (stride d + 4 keeps float4 rows 16-byte aligned and spreads
@@ -81,12 +62,6 @@ __device__ inline void load_query(const float* q, int b, int Lq, int d,
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     s.qs[(i / d) * q_stride(d) + i % d] = qb[i];
   }
-}
-
-// Whole block: the query rows and the bucket table.
-__device__ inline void load_row(const TileArgs& a, int b, const TileSmem& s) {
-  load_query(a.q, b, a.Lq, a.d, s);
-  if (threadIdx.x < (1 << a.nbits)) s.bw[threadIdx.x] = a.bucket_weights[threadIdx.x];
 }
 
 // The MaxSim part of the tile body, shared by every kernel that scores
@@ -144,36 +119,6 @@ __device__ inline float query_sum(const float (&m)[kMaxLqPerLane],
     for (int src = 0; src < n; ++src) total += __shfl_sync(0xffffffffu, v, src);
   }
   return total;
-}
-
-// One warp: the MaxSim score of compressed candidate c of batch row b.
-// Each valid token is decoded into s.emb (centroid row + bucket weight,
-// one fp32 add per dimension) and folded in with `token_max`. Every
-// lane returns the same value.
-__device__ inline float score_candidate(const TileArgs& a, int b, int c,
-                                        const TileSmem& s, int lane) {
-  const int d = a.d, nbits = a.nbits;
-  const int cpb = 8 / nbits;
-  const int pd = d / cpb;
-  const unsigned code_mask = (1u << nbits) - 1u;
-  const size_t tok0 = ((size_t)b * a.C + c) * a.Ld;
-
-  float m[kMaxLqPerLane];
-  init_max(m);
-  for (int t = 0; t < a.Ld; ++t) {
-    const size_t tok = tok0 + t;
-    if (!a.valid[tok]) continue;  // the same for every lane of the warp
-    const float* crow = a.centroids + (size_t)a.cids[tok] * d;
-    const uint8_t* prow = a.packed + tok * pd;
-    for (int j = lane; j < d; j += 32) {
-      const unsigned code = (prow[j / cpb] >> ((j % cpb) * nbits)) & code_mask;
-      s.emb[j] = crow[j] + s.bw[code];
-    }
-    __syncwarp();
-    token_max(s, a.Lq, d, lane, m);
-    __syncwarp();  // the buffer is rewritten for the next token
-  }
-  return query_sum(m, a.q_valid + (size_t)b * a.Lq, a.Lq, lane);
 }
 
 }  // namespace rt

@@ -38,10 +38,10 @@ def decompress_maxsim_scores_batch(q, packed, cids, doc_valid, centroids,
     if B * C == 0:
         return out
     lib = _build.load()
-    smem = lib.decompress_maxsim_smem_bytes(Lq, d)
+    smem = lib.decompress_maxsim_smem_bytes(Lq, d, nbits)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(f"decompress_maxsim needs {smem} B of shared "
-                         f"memory at Lq={Lq}, d={d}")
+                         f"memory at Lq={Lq}, d={d}, nbits={nbits}")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.decompress_maxsim_launch(

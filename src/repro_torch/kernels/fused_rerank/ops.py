@@ -3,7 +3,8 @@
 
 For CUDA tensors the wrapper launches the kernel, and raises if it
 cannot; for CPU tensors it runs the plain PyTorch version (``ref.py``).
-``fused_rerank_topk_batch.launches`` counts kernel launches.
+``fused_rerank_topk_batch.launches`` counts the calls that launch the
+kernel (its scoring and its selection launch count as one).
 """
 
 from __future__ import annotations
@@ -51,18 +52,20 @@ def fused_rerank_topk_batch(q, packed, cids, doc_valid, cand_mask,
     if B == 0:
         return _pad_topk(vals, idx, k)
     lib = _build.load()
-    smem = lib.fused_rerank_smem_bytes(Lq, d, C)
+    smem = lib.fused_rerank_smem_bytes(Lq, d, nbits, C)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(f"fused_rerank needs {smem} B of shared memory "
-                         f"at Lq={Lq}, d={d}, C={C}")
+                         f"at Lq={Lq}, d={d}, nbits={nbits}, C={C}")
+    # the scoring launch's (B, C) scores, read by the selection launch
+    scratch = torch.empty((B, C), dtype=torch.float32, device=q.device)
     qa, pa, ca, va, qva, cent, bw = args
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.fused_rerank_launch(
             qa.data_ptr(), pa.data_ptr(), ca.data_ptr(), va.data_ptr(),
             cmask.data_ptr(), qva.data_ptr(), cent.data_ptr(),
-            bw.data_ptr(), vals.data_ptr(), idx.data_ptr(), B, C, Ld, Lq,
-            d, nbits, kk, stream)
+            bw.data_ptr(), scratch.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), B, C, Ld, Lq, d, nbits, kk, stream)
     _build.check(lib, err, "fused_rerank")
     _build.count_launch(fused_rerank_topk_batch)
     return _pad_topk(vals, idx, k)

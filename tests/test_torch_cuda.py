@@ -29,6 +29,7 @@ from repro_torch.index.builder import ColBERTIndex, write_index
 from repro_torch.index.residual import decode_embeddings
 from repro_torch.index.splade_device import SpladeDeviceCache
 from repro_torch.index.splade_index import SpladeIndex, build_splade_index
+from repro_torch.kernels import _build
 from repro_torch.kernels.decompress_maxsim.ops import (
     decompress_maxsim_scores_batch)
 from repro_torch.kernels.fused_rerank.ops import fused_rerank_topk_batch
@@ -77,9 +78,28 @@ def _case(seed, B, C, Ld, nbits, K, d, Lq):
     (4, 3, 40, 12, 10, 500, 128, 32),
     (2, 2, 17, 5, 30, 64, 64, 8),        # k > C
     (4, 1, 1, 1, 1, 8, 32, 4),
+    # the serve width (C=200, Ld=180, Lq=32, d=128) at B=1 and B=2
+    (4, 1, 200, 180, 100, 4096, 128, 32),
+    (2, 1, 200, 180, 100, 4096, 128, 32),
+    (4, 2, 200, 180, 256, 4096, 128, 32),
+    (2, 2, 200, 180, 100, 4096, 128, 32),
+    # C not a multiple of the candidate group, Ld of the token chunk
+    (4, 2, 201, 70, 50, 300, 64, 16),
+    (4, 3, 17, 130, 5, 300, 128, 32),
+    (2, 2, 1, 1, 3, 64, 64, 8),          # C = 1, Ld = 1
+    (4, 2, 33, 1, 40, 64, 32, 32),       # Ld = 1, d = 32
+    # one query token, and the most the kernel takes
+    (4, 2, 24, 20, 8, 128, 128, 1),
+    (2, 2, 24, 20, 8, 128, 128, 128),
+    # a width whose tile only fits with one warp and windows of 4 tokens
+    (4, 2, 9, 7, 5, 64, 1024, 48),
 ])
 def test_kernels_match_plain(cuda, nbits, B, C, Ld, k, K, d, Lq):
-    case = _case(nbits + C, B, C, Ld, nbits, K, d, Lq)
+    case = list(_case(nbits + C, B, C, Ld, nbits, K, d, Lq))
+    if C > 2:
+        case[3][:, C // 2] = False        # a candidate with no valid token
+    if B > 1:
+        case[4][B - 1] = False            # a row with every candidate masked
     q, packed, cids, valid, cmask, cent, bw, qv = case
     dev = tuple(t.to(cuda) for t in case)
     launches = (decompress_maxsim_scores_batch.launches,
@@ -96,14 +116,47 @@ def test_kernels_match_plain(cuda, nbits, B, C, Ld, k, K, d, Lq):
                                      q_valid=qv)
     assert_topk_match(wv.numpy(), wi.numpy(), vals.cpu().numpy(),
                       idx.cpu().numpy())
+    assert (decompress_maxsim_scores_batch.launches,
+            fused_rerank_topk_batch.launches) == (launches[0] + 1,
+                                                  launches[1] + 1)
+    # fused == split, bit for bit
     kk = min(k, C)
     sv, si = stable_topk(got.masked_fill(~dev[4], float("-inf")), kk)
     np.testing.assert_array_equal(idx[:, :kk].cpu().numpy(), si.cpu().numpy())
     np.testing.assert_array_equal(vals[:, :kk].cpu().numpy().view(np.uint32),
                                   sv.cpu().numpy().view(np.uint32))
-    assert (decompress_maxsim_scores_batch.launches,
-            fused_rerank_topk_batch.launches) == (launches[0] + 1,
-                                                  launches[1] + 1)
+    # a B=1 launch equals its batch row, bit for bit
+    for b in {0, B - 1}:
+        one = decompress_maxsim_scores_batch(
+            *(t[b:b + 1] for t in dev[:4]), *dev[5:7], nbits=nbits,
+            q_valid=dev[7][b:b + 1])
+        np.testing.assert_array_equal(one.cpu().numpy().view(np.uint32),
+                                      got[b:b + 1].cpu().numpy()
+                                      .view(np.uint32))
+        v1, i1 = fused_rerank_topk_batch(
+            *(t[b:b + 1] for t in dev[:5]), *dev[5:7], nbits=nbits, k=k,
+            q_valid=dev[7][b:b + 1])
+        np.testing.assert_array_equal(i1.cpu().numpy(), idx[b:b + 1].cpu()
+                                      .numpy())
+        np.testing.assert_array_equal(v1.cpu().numpy().view(np.uint32),
+                                      vals[b:b + 1].cpu().numpy()
+                                      .view(np.uint32))
+
+
+def test_tile_takes_every_shape_the_per_warp_tile_took(cuda):
+    """The register-tiled body never refuses a shape that the earlier
+    one-warp-per-candidate tile took: (Lq·(d+4) + 8·d + 16) floats of
+    shared memory, at most 232,448 bytes."""
+    lib = _build.load()
+    for nbits in (2, 4):
+        for d in range(32, 1025, 32):
+            for Lq in range(1, 129):
+                if (Lq * (d + 4) + 8 * d + 16) * 4 > _build.MAX_SMEM_BYTES:
+                    continue
+                assert lib.decompress_maxsim_smem_bytes(Lq, d, nbits) \
+                    <= _build.MAX_SMEM_BYTES, (Lq, d, nbits)
+                assert lib.fused_rerank_smem_bytes(Lq, d, nbits, 200) \
+                    <= _build.MAX_SMEM_BYTES, (Lq, d, nbits)
 
 
 def test_wrappers_reject_mixed_devices(cuda):

@@ -23,10 +23,17 @@ from repro.kernels.decompress_maxsim.ops import (
     decompress_maxsim_scores as j_dms,
     decompress_maxsim_scores_batch as j_dms_batch,
 )
+from repro.kernels.decompress_maxsim.ref import (
+    decompress_maxsim_batch_ref as j_dms_batch_ref,
+)
 from repro.kernels.fused_rerank.ops import (
     fused_rerank_topk as j_fr,
     fused_rerank_topk_batch as j_fr_batch,
 )
+from repro.kernels.fused_rerank.ref import (
+    fused_rerank_batch_ref as j_fr_batch_ref,
+)
+from repro_torch.kernels._inputs import aligned
 from repro_torch.kernels.decompress_maxsim.ops import (
     decompress_maxsim_scores,
     decompress_maxsim_scores_batch,
@@ -129,6 +136,32 @@ def test_fused_rerank_single_matches_jax(nbits, C, k):
                           idx.numpy(), what=impl)
 
 
+@pytest.mark.parametrize("nbits,B", [(4, 1), (4, 2), (2, 1), (2, 2)])
+def test_tail_matches_jax_ref_at_serve_width(nbits, B):
+    """Both plain versions at the slice's serve width (C=200, Ld=180,
+    Lq=32, d=128; a small centroid table) against the JAX package's
+    ``ref.py`` oracles, with a candidate that has no valid token and, at
+    B=2, a row whose candidates are all masked."""
+    C, Ld, Lq, d, k = 200, 180, 32, 128, 100
+    case = _case(41 * nbits + B, B, C, Ld, nbits, K=256, d=d, Lq=Lq)
+    case[3][:, 7] = False
+    if B > 1:
+        case[4][1] = False
+    q, packed, cids, valid, cmask, cent, bw, qv = _torch(case)
+    got = decompress_maxsim_scores_batch(q, packed, cids, valid, cent, bw,
+                                         nbits=nbits, q_valid=qv).numpy()
+    jq, jp, jc, jv, jm, jcent, jbw, jqv = _jax(case)
+    want = np.asarray(j_dms_batch_ref(jq, jp, jc, jv, jcent, jbw, nbits,
+                                      jqv))
+    np.testing.assert_allclose(got, want, **TOL)
+    vals, idx = fused_rerank_topk_batch(q, packed, cids, valid, cmask, cent,
+                                        bw, nbits=nbits, k=k, q_valid=qv)
+    wv, wi = j_fr_batch_ref(jq, jp, jc, jv, jm, jcent, jbw, nbits,
+                            k + REF_MARGIN, jqv)
+    assert_topk_match(np.asarray(wv), np.asarray(wi), vals.numpy(),
+                      idx.numpy())
+
+
 def test_fused_rerank_ties_break_toward_lower_index():
     """Identical candidates score identically; selection orders them by
     ascending candidate index, as the JAX reference does."""
@@ -182,6 +215,19 @@ def test_fused_equals_split_bitwise():
     np.testing.assert_array_equal(idx.numpy(), want_i.numpy())
     np.testing.assert_array_equal(vals.numpy().view(np.uint32),
                                   want_v.numpy().view(np.uint32))
+
+
+def test_aligned_copies_misaligned_views():
+    """The tile kernels read q, centroids and packed codes with 16- and
+    8-byte copies: a contiguous view at an odd offset is copied to an
+    aligned tensor with the same values, an aligned one passes as is."""
+    flat = torch.arange(65, dtype=torch.float32)
+    view = flat[1:].view(8, 8)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    out = aligned(view)
+    assert out.data_ptr() % 16 == 0 and torch.equal(out, view)
+    whole = torch.zeros(8, 8)
+    assert aligned(whole) is whole
 
 
 def test_wrappers_refuse_other_devices():
