@@ -37,7 +37,19 @@ Phases, in order; any failure raises and the script exits non-zero:
              held to an engine built with ``device="cpu"`` over the same
              directory, each run's launch counts must show the kernels of
              its path and no other, and the device stage 1 must equal the
-             host's bit for bit on the requests' terms;
+             host's bit for bit on the requests' terms. Then PLAID
+             ``colbert`` at the serve_plaid shape (nprobe=4,
+             candidate_cap=4096, ndocs=256; 32-token unit random
+             queries, k ∈ {10, 100}): 64 requests at max_batch=32 on the
+             mmap pool with the fused tail, 32 with the split tail, 32
+             with the pool resident on the card, 16 at max_batch=1. Each
+             run must launch its tail's kernel and no SPLADE kernel, the
+             mmap runs' codes gather must touch no residual page, every
+             answer is held to the CPU engine (through a tie at the
+             probe's or the approximate stage's boundary where they
+             differ), the split and resident runs equal the mmap fused
+             run bit for bit, and stages 1-3 of one batch are held to the
+             CPU's;
 5. time    — time each kernel with CUDA events at the serve shapes, and
              each at B=1, in an eager loop (the rerank tail's two
              kernels, the SPLADE kernel's two entry points and
@@ -45,7 +57,17 @@ Phases, in order; any failure raises and the script exits non-zero:
              and ``library_graph_ms``); and one
              device stage-1 dispatch in its parts (host padding, the
              copy in, the top-k launch, the copy out, the whole
-             dispatch, and the full sort the launch replaced).
+             dispatch, and the full sort the launch replaced). One
+             colbert batch in its device parts (the probe's matmul and
+             top-nprobe selection, stage 2, stage 3, and the tail's two
+             kernels at C = ndocs on its survivors, where they are also
+             held to their plain versions; fused_rerank also at B=1),
+             eager and by replay, each against its bound.
+
+The ``{"kernels": [...]}`` line lists each kernel once per main path
+(``path``): the SPLADE methods served with the device stage 1, and each
+colbert run with its tail's kernel; ``launches`` is that path's own run's
+count, and the times are at that path's candidate width (``C``).
 
 Arithmetic is IEEE fp32: TF32 is switched off for matmuls and cuDNN.
 The last line of standard output is
@@ -89,6 +111,11 @@ class Shapes:
     query_terms: int = 12      # nonzero terms per SPLADE query vector
     terms_per_topic: int = 96  # a topic's vocabulary, drawn Zipf(1/rank)
     n_requests: int = 64
+    # PLAID colbert at the serve_plaid shape
+    # (src/repro/configs/colbert_serve.py:73-75)
+    nprobe: int = 4
+    candidate_cap: int = 4096
+    ndocs: int = 256
 
 
 FULL = Shapes()
@@ -478,17 +505,57 @@ def check_splade(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
 # phase 4: serve
 # ---------------------------------------------------------------------------
 
-def make_retriever(path: pathlib.Path, device):
-    from repro_torch.core.multistage import (MultiStageParams,
-                                             MultiStageRetriever)
+def plaid_params(s: Shapes):
+    from repro_torch.core.plaid import PlaidParams
+    return PlaidParams(nprobe=s.nprobe, candidate_cap=s.candidate_cap,
+                       ndocs=s.ndocs, k=100)
+
+
+def make_searcher(path: pathlib.Path, device, resident: bool = False):
+    """The index's searcher on ``device``: the mmap pool, or with
+    ``resident`` the pool held on the device."""
     from repro_torch.core.plaid import PLAIDSearcher
     from repro_torch.index.builder import ColBERTIndex
+    return PLAIDSearcher(ColBERTIndex(path / "colbert", mode="mmap"),
+                         plaid_params(FULL), device_resident=resident,
+                         device=device)
+
+
+def make_retriever(path: pathlib.Path, device, resident: bool = False):
+    from repro_torch.core.multistage import (MultiStageParams,
+                                             MultiStageRetriever)
     from repro_torch.index.splade_index import SpladeIndex
     return MultiStageRetriever(
         SpladeIndex.load(path / "splade", mmap=True),
-        PLAIDSearcher(ColBERTIndex(path / "colbert", mode="mmap"),
-                      device=device),
+        make_searcher(path, device, resident),
         MultiStageParams(first_k=FULL.C, k=100), device=device)
+
+
+def counted_kernels() -> dict:
+    """Every kernel wrapper with a launch count, by name."""
+    from repro_torch.kernels.decompress_maxsim.ops import (
+        decompress_maxsim_scores_batch as dms)
+    from repro_torch.kernels.fused_rerank.ops import (
+        fused_rerank_topk_batch as frk)
+    from repro_torch.kernels.maxsim.ops import maxsim_scores_batch
+    from repro_torch.kernels.splade_score.ops import (splade_row_scores_batch,
+                                                      splade_row_topk_batch)
+    return {"decompress_maxsim": dms, "fused_rerank": frk,
+            "splade_score": splade_row_scores_batch,
+            "splade_topk": splade_row_topk_batch,
+            "maxsim": maxsim_scores_batch}
+
+
+def check_launches(label: str, launches: dict, path_kernels) -> None:
+    """Each kernel of the run's path launched, and no other."""
+    for name in path_kernels:
+        if launches[name] == 0:
+            raise RuntimeError(f"kernel {name} was never launched in the "
+                               f"{label} run")
+    for name in set(launches) - set(path_kernels):
+        if launches[name]:
+            raise RuntimeError(f"the {label} run launched {name}, which is "
+                               "not on its path")
 
 
 def make_requests(rng, s: Shapes, topics: np.ndarray, n: int,
@@ -539,7 +606,10 @@ def serve_run(engine, warm, reqs, max_batch: int, counted: dict):
         "qps": len(results) / wall,
         "p50_ms": float(np.percentile(lat, 50)),
         "p99_ms": float(np.percentile(lat, 99)),
-        "splade_stage1_s": stages["splade_stage1"], "stage_wall_s": stages,
+        "splade_stage1_s": stages.get("splade_stage1"),
+        "stage_wall_s": stages,
+        "stage_pages": {n: r["pages_touched"]
+                        for n, r in health["stages"].items()},
         "launches": launches,
         "launches_per_batch": {n: c / health["batches"]
                                for n, c in launches.items()}}
@@ -567,20 +637,10 @@ def serve(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
     requests); every run's answers are held to one CPU reference, and
     each run's launch counts must show the kernels of its path. →
     {label: [run line, ...]}."""
-    from repro_torch.kernels.decompress_maxsim.ops import (
-        decompress_maxsim_scores_batch as dms)
-    from repro_torch.kernels.fused_rerank.ops import (
-        fused_rerank_topk_batch as frk)
-    from repro_torch.kernels.maxsim.ops import maxsim_scores_batch
-    from repro_torch.kernels.splade_score.ops import (splade_row_scores_batch,
-                                                      splade_row_topk_batch)
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.testing import REF_MARGIN, assert_topk_match
 
-    counted = {"decompress_maxsim": dms, "fused_rerank": frk,
-               "splade_score": splade_row_scores_batch,
-               "splade_topk": splade_row_topk_batch,
-               "maxsim": maxsim_scores_batch}
+    counted = counted_kernels()
     # the kernels each (stage-1 backend, rerank tail) must launch; the
     # device stage 1 runs the SPLADE kernel's top-k entry point
     stage1 = {"host": (), "device": ("splade_topk",)}
@@ -603,14 +663,7 @@ def serve(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
                 f"1, {rerank} tail, max_batch {max_batch}) in "
                 f"{line['requests'] / line['qps']:.3f} s, {line['batches']} "
                 f"batches; launches {launches}")
-            for name in stage1[backend] + tail[rerank]:
-                if launches[name] == 0:
-                    raise RuntimeError(f"kernel {name} was never launched "
-                                       f"in the {label} run")
-            for name in set(counted) - set(stage1[backend] + tail[rerank]):
-                if launches[name]:
-                    raise RuntimeError(f"the {label} run launched {name}, "
-                                       "which is not on its path")
+            check_launches(label, launches, stage1[backend] + tail[rerank])
     finally:
         retriever.set_rerank_backend("fused")
 
@@ -640,6 +693,175 @@ def serve(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
         "requests")
     return {lb: [line for lb2, _, line in runs if lb2 == lb]
             for lb in dict.fromkeys(r[0] for r in serve_runs(s))}
+
+
+# ---------------------------------------------------------------------------
+# phase 4: serve colbert (PLAID)
+# ---------------------------------------------------------------------------
+
+def colbert_requests(rng, s: Shapes, n: int, qid0: int = 0):
+    """n colbert requests: unit random queries of ``s.Lq`` tokens,
+    k ∈ {10, 100}."""
+    from repro_torch.serving.engine import Request
+    return [Request(qid=qid0 + i, method="colbert",
+                    q_emb=unit(rng.normal(size=(s.Lq, s.d))),
+                    k=(10, 100)[i % 2]) for i in range(n)]
+
+
+def colbert_runs(s: Shapes):
+    """The colbert runs of phase 4: (label, pool resident on the card,
+    rerank tail, max_batch, number of requests), each a prefix of the
+    same requests."""
+    n = s.n_requests
+    return (("colbert", False, "fused", s.B, n),
+            ("colbert_split", False, "split", s.B, min(32, n)),
+            ("colbert_resident", True, "fused", s.B, min(32, n)),
+            ("colbert_b1", False, "fused", 1, min(16, n)))
+
+
+def candidate_counts(searcher, q_embs, B: int) -> dict:
+    """Real candidates per query: the union of its probed lists, and
+    what stage 2 keeps of it under the cap."""
+    import torch
+    before, after = [], []
+    for lo in range(0, len(q_embs), B):
+        st = searcher.probe_batch(q_embs[lo:lo + B])
+        n = st["cids"].shape[0]
+        union = searcher.ivf_padded[st["cids"].reshape(n, -1).long()]
+        before += [int(torch.unique(r[r >= 0]).numel())
+                   for r in union.reshape(n, -1)]
+        after += (st["cand"] >= 0).sum(dim=1).tolist()
+    cap = searcher.params.candidate_cap
+
+    def summary(x):
+        return {"min": int(np.min(x)), "median": float(np.median(x)),
+                "max": int(np.max(x))}
+
+    return {"before_cap": summary(before), "after_cap": summary(after),
+            "queries_capped": int(sum(b > cap for b in before)),
+            "queries": len(before), "ivf_longest_list": int(
+                searcher.ivf_padded.shape[1])}
+
+
+def check_colbert_stages(cpu, dev, q_embs, device) -> dict:
+    """Stages 1-3 of one batch on the card against the CPU: probe scores
+    allclose (and a B=1 probe equal to its batch row bit for bit); the
+    stage-2 candidates from the CPU's probed centroids equal exactly;
+    the approximate scores of the CPU's candidates allclose. Returns the
+    largest differences."""
+    import torch
+    from repro_torch.core.plaid import (stage2_candidates_batch,
+                                        stage3_approx_score_batch)
+    from repro_torch.testing import ATOL, RTOL
+
+    g, c = dev.probe_batch(q_embs), cpu.probe_batch(q_embs)
+    want = c["scores_c"].to(device)
+    diff = (g["scores_c"] - want).abs()
+    probe_err = diff.max().item()
+    if not bool((diff <= ATOL + RTOL * want.abs()).all()):
+        raise AssertionError(f"probe scores differ by up to {probe_err}")
+    del want, diff
+    nprobe = dev.params.nprobe
+    moved = sum(set(a) != set(b) for a, b in zip(
+        g["cids"].cpu().numpy().reshape(-1, nprobe),
+        c["cids"].numpy().reshape(-1, nprobe)))
+    one = dev.probe_batch(q_embs[3:4])
+    if not torch.equal(one["scores_c"][0], g["scores_c"][3]):
+        raise AssertionError("a B=1 probe != its batch row")
+    cand = stage2_candidates_batch(dev.ivf_padded, c["cids"].to(device),
+                                   dev.params.candidate_cap)
+    if not torch.equal(cand.cpu(), c["cand"]):
+        raise AssertionError("stage-2 candidates from equal probes differ")
+    codes, valid = cpu.gather_codes_batch(c["cand"].numpy())
+    got = stage3_approx_score_batch(g["scores_c"], *dev.to_device(
+        codes, valid), g["q_valid"]).cpu().numpy()
+    ref = stage3_approx_score_batch(c["scores_c"], *cpu.to_device(
+        codes, valid), c["q_valid"]).numpy()
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL,
+                               err_msg="approximate scores")
+    out = {"probe_max_abs_err": probe_err, "probe_tokens_moved": moved,
+           "probe_tokens": len(q_embs) * len(q_embs[0]),
+           "approx_max_abs_err": float(np.abs(got - ref).max())}
+    log(f"colbert stages 1-3 vs CPU on {len(q_embs)} queries: {out}; "
+        "B=1 probe == batch row, stage 2 equal")
+    return out
+
+
+def serve_colbert(rng, s: Shapes, path: pathlib.Path, device):
+    """Serve the runs of :func:`colbert_runs` through ``RetrievalServer``
+    on the card. Each run must launch its tail's kernel and no other;
+    the mmap runs' codes gather must touch no residual page. Every
+    answer is held to a ``device="cpu"`` engine, under the tie rule
+    (``repro_torch.testing.assert_colbert_match``); the resident and the
+    split runs equal the mmap fused run bit for bit. → ({label: run
+    line}, stage check, candidate counts)."""
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.testing import REF_MARGIN, assert_colbert_match
+
+    counted = counted_kernels()
+    tail = {"fused": ("fused_rerank",), "split": ("decompress_maxsim",)}
+    pools = {False: make_retriever(path, device),
+             True: make_retriever(path, device, resident=True)}
+    warm = colbert_requests(rng, s, 4, qid0=20_000)
+    reqs = colbert_requests(rng, s, s.n_requests)
+    runs = []
+    for label, resident, rerank, max_batch, n in colbert_runs(s):
+        retriever = pools[resident]
+        retriever.set_rerank_backend(rerank)
+        try:
+            results, line = serve_run(ServeEngine(retriever), warm,
+                                      reqs[:n], max_batch, counted)
+        finally:
+            retriever.set_rerank_backend("fused")
+        line.update(method="colbert", rerank_backend=rerank,
+                    pool="resident" if resident else "mmap")
+        check_launches(label, line["launches"], tail[rerank])
+        pages = line["stage_pages"]
+        if not resident and (pages["host_gather:codes"] != 0
+                             or pages["host_gather:residuals"] == 0):
+            raise RuntimeError(f"{label}: residual pages touched by the "
+                               f"codes / residual gathers: {pages}")
+        log(f"served {n} colbert requests ({label}: {line['pool']} pool, "
+            f"{rerank} tail, max_batch {max_batch}) at {line['qps']:.1f} "
+            f"QPS, p50 {line['p50_ms']:.1f} ms, p99 {line['p99_ms']:.1f} "
+            f"ms; stage walls {line['stage_wall_s']}; residual pages "
+            f"{pages}; launches {line['launches']}")
+        runs.append((label, results, line, retriever.searcher))
+
+    cpu = make_retriever(path, "cpu")
+    ref_engine = ServeEngine(cpu)
+    deeper = [dataclasses.replace(r, k=r.k + REF_MARGIN) for r in reqs]
+    want = []
+    for lo in range(0, len(deeper), s.B):
+        want += ref_engine.process_batch(deeper[lo:lo + s.B])
+    for label, results, line, searcher in runs:
+        routes = {}
+        for res, ref, req in zip(results, want, reqs):
+            assert res.qid == ref.qid == req.qid
+            route = assert_colbert_match(
+                cpu.searcher, searcher, req.q_emb, (ref.scores, ref.pids),
+                (res.scores, res.pids),
+                what=f"{label}: qid {req.qid} k={req.k}")
+            if route:
+                routes[route] = routes.get(route, 0) + 1
+        line["tie_routes"] = routes
+        log(f"{label}: all {len(results)} answers match the CPU engine; "
+            f"through a tie at a stage boundary: {routes or 'none'}")
+    by_label = {label: results for label, results, _, _ in runs}
+    for label in ("colbert_split", "colbert_resident"):
+        for a, b in zip(by_label[label], by_label["colbert"]):
+            if not (np.array_equal(a.pids, b.pids) and np.array_equal(
+                    a.scores.view(np.uint32), b.scores.view(np.uint32))):
+                raise AssertionError(f"{label} qid {a.qid} != the mmap "
+                                     "fused run")
+    log("colbert: the split and the resident runs equal the mmap fused "
+        "run bit for bit")
+    stages = check_colbert_stages(cpu.searcher, pools[False].searcher,
+                                  [r.q_emb for r in reqs[:s.B]], device)
+    counts = candidate_counts(pools[False].searcher,
+                              [r.q_emb for r in reqs], s.B)
+    log(f"colbert candidates per query: {counts}")
+    return {label: line for label, _, line, _ in runs}, stages, counts
 
 
 # ---------------------------------------------------------------------------
@@ -809,6 +1031,89 @@ def stage1_breakdown(cache, tids, tw, k: int) -> dict:
                 lambda: stable_topk(scores, k_eff), 20)}
 
 
+def tile_fns(x: dict, fused: bool) -> dict:
+    """The rerank tail's kernel on tile inputs ``x`` (nbits=4, k=100)
+    and its plain version, as timing closures."""
+    from repro_torch.kernels.decompress_maxsim.ops import (
+        decompress_maxsim_scores_batch as dms)
+    from repro_torch.kernels.decompress_maxsim.ref import (
+        decompress_maxsim_ref)
+    from repro_torch.kernels.fused_rerank.ops import (
+        fused_rerank_topk_batch as frk)
+    from repro_torch.kernels.fused_rerank.ref import fused_rerank_ref
+
+    t = (x["q"], x["packed"], x["cids"], x["valid"])
+    tables = (x["centroids"], x["bw"])
+    if fused:
+        return {
+            "ms": lambda: frk(*t, x["cmask"], *tables, nbits=4, k=100,
+                              q_valid=x["q_valid"]),
+            "plain": lambda: fused_rerank_ref(*t, x["cmask"], *tables, 4,
+                                              100, x["q_valid"])}
+    return {"ms": lambda: dms(*t, *tables, nbits=4, q_valid=x["q_valid"]),
+            "plain": lambda: decompress_maxsim_ref(*t, *tables, 4,
+                                                   x["q_valid"])}
+
+
+def tail_errors(x: dict) -> dict:
+    """The rerank tail's two kernels against their plain versions on tile
+    inputs ``x`` (nbits=4, k=100): scores allclose, the fused top-k's ids
+    equal up to tie groups. → the largest |kernel - plain| per kernel."""
+    import torch
+    from repro_torch.kernels.decompress_maxsim.ops import (
+        decompress_maxsim_scores_batch as dms)
+    from repro_torch.kernels.decompress_maxsim.ref import (
+        decompress_maxsim_ref)
+    from repro_torch.kernels.fused_rerank.ops import (
+        fused_rerank_topk_batch as frk)
+    from repro_torch.kernels.fused_rerank.ref import fused_rerank_ref
+    from repro_torch.testing import ATOL, REF_MARGIN, RTOL, assert_topk_match
+
+    t = (x["q"], x["packed"], x["cids"], x["valid"])
+    tables = (x["centroids"], x["bw"])
+    got = dms(*t, *tables, nbits=4, q_valid=x["q_valid"])
+    want = decompress_maxsim_ref(*t, *tables, 4, x["q_valid"])
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL,
+                               err_msg="decompress_maxsim")
+    vals, idx = frk(*t, x["cmask"], *tables, nbits=4, k=100,
+                    q_valid=x["q_valid"])
+    wv, wi = fused_rerank_ref(*t, x["cmask"], *tables, 4, 100 + REF_MARGIN,
+                              x["q_valid"])
+    assert_topk_match(wv.cpu().numpy(), wi.cpu().numpy(), vals.cpu().numpy(),
+                      idx.cpu().numpy(), what="fused_rerank")
+    fin = torch.isfinite(wv[:, :100])
+    return {"decompress_maxsim": (got - want).abs().max().item(),
+            "fused_rerank": (vals[fin] - wv[:, :100][fin]).abs().max().item()}
+
+
+def measure(fns, bound_fn, library=None, graph=False) -> dict:
+    """Time ``fns["ms"]`` (and ``fns["plain"]``, where given, and
+    ``library``) in turns — plain, kernel, library, library, kernel,
+    plain — so that drift on the card does not favour one of them; each
+    number is the mean of its two turns, both turns are kept. ``ms`` and
+    ``library_ms`` are eager loops, every kernel's yardstick; with
+    ``graph`` the kernel and the library call are also timed by
+    CUDA-graph replay (graph_ms, library_graph_ms: their device time
+    without the host's enqueue)."""
+    order = ([("plain_ms", fns["plain"], cuda_time_ms, 10)]
+             if "plain" in fns else [])
+    timed = [("ms", fns["ms"])]
+    if library is not None:
+        timed.append(("library_ms", library))
+    for name, fn in timed:
+        order.append((name, fn, cuda_time_ms, 20))
+        if graph:
+            order.append((name.replace("ms", "graph_ms"), fn,
+                          graph_time_ms, 20))
+    turns = {name: [] for name, _, _, _ in order}
+    for name, fn, timer, iters in order + order[::-1]:
+        turns[name].append(timer(fn, iters))
+    out = {name: sum(t) / len(t) for name, t in turns.items()}
+    out.setdefault("library_ms", None)
+    return dict(out, turns=turns, bound=bound_fn())
+
+
 def time_kernels(rng, s: Shapes, device, peaks, path: pathlib.Path,
                  topics: np.ndarray, seed: int) -> dict:
     """CUDA-event times of each kernel, its plain version and (where one
@@ -817,13 +1122,6 @@ def time_kernels(rng, s: Shapes, device, peaks, path: pathlib.Path,
     import torch
     from repro_torch.index.splade_device import SpladeDeviceCache
     from repro_torch.index.splade_index import SpladeIndex
-    from repro_torch.kernels.decompress_maxsim.ops import (
-        decompress_maxsim_scores_batch as dms)
-    from repro_torch.kernels.decompress_maxsim.ref import (
-        decompress_maxsim_ref)
-    from repro_torch.kernels.fused_rerank.ops import (
-        fused_rerank_topk_batch as frk)
-    from repro_torch.kernels.fused_rerank.ref import fused_rerank_ref
     from repro_torch.kernels.maxsim.ops import maxsim_scores_batch
     from repro_torch.kernels.maxsim.ref import maxsim_scores_ref
     from repro_torch.kernels.fused_rerank.ref import stable_topk
@@ -832,55 +1130,18 @@ def time_kernels(rng, s: Shapes, device, peaks, path: pathlib.Path,
     from repro_torch.kernels.splade_score.ref import (
         splade_row_scores_batch_ref)
 
-    def tile(x, fused):
-        t = (x["q"], x["packed"], x["cids"], x["valid"])
-        tables = (x["centroids"], x["bw"])
-        if fused:
-            return {
-                "ms": lambda: frk(*t, x["cmask"], *tables, nbits=4, k=100,
-                                  q_valid=x["q_valid"]),
-                "plain": lambda: fused_rerank_ref(*t, x["cmask"], *tables, 4,
-                                                  100, x["q_valid"])}
-        return {"ms": lambda: dms(*t, *tables, nbits=4, q_valid=x["q_valid"]),
-                "plain": lambda: decompress_maxsim_ref(*t, *tables, 4,
-                                                       x["q_valid"])}
-
-    def measure(fns, bound_fn, library=None, graph=False):
-        # in turns — plain, kernel, library, library, kernel, plain — so
-        # that drift on the card does not favour one of them; each
-        # number is the mean of its two turns, both turns are kept.
-        # ``ms`` and ``library_ms`` are eager loops, every kernel's
-        # yardstick; with ``graph`` the kernel and the library call are
-        # also timed by CUDA-graph replay (graph_ms, library_graph_ms:
-        # their device time without the host's enqueue)
-        order = [("plain_ms", fns["plain"], cuda_time_ms, 10)]
-        timed = [("ms", fns["ms"])]
-        if library is not None:
-            timed.append(("library_ms", library))
-        for name, fn in timed:
-            order.append((name, fn, cuda_time_ms, 20))
-            if graph:
-                order.append((name.replace("ms", "graph_ms"), fn,
-                              graph_time_ms, 20))
-        turns = {name: [] for name, _, _, _ in order}
-        for name, fn, timer, iters in order + order[::-1]:
-            turns[name].append(timer(fn, iters))
-        out = {name: sum(t) / len(t) for name, t in turns.items()}
-        out.setdefault("library_ms", None)
-        return dict(out, turns=turns, bound=bound_fn())
-
     out = {}
     x = to_dev(kernel_inputs(rng, s, 4), device)
     x1 = rows_of(x, 3)
     out["decompress_maxsim"] = {
-        "batch": measure(tile(x, False), lambda: bound(x, s, peaks, False),
+        "batch": measure(tile_fns(x, False), lambda: bound(x, s, peaks, False),
                          graph=True),
-        "b1": measure(tile(x1, False), lambda: bound(x1, s, peaks, False),
+        "b1": measure(tile_fns(x1, False), lambda: bound(x1, s, peaks, False),
                       graph=True)}
     out["fused_rerank"] = {
-        "batch": measure(tile(x, True), lambda: bound(x, s, peaks, True),
+        "batch": measure(tile_fns(x, True), lambda: bound(x, s, peaks, True),
                          graph=True),
-        "b1": measure(tile(x1, True), lambda: bound(x1, s, peaks, True),
+        "b1": measure(tile_fns(x1, True), lambda: bound(x1, s, peaks, True),
                       graph=True)}
     del x, x1
 
@@ -954,7 +1215,137 @@ def time_kernels(rng, s: Shapes, device, peaks, path: pathlib.Path,
     return out
 
 
+def time_colbert(rng, s: Shapes, device, peaks, path: pathlib.Path) -> dict:
+    """One colbert batch at the serve_plaid shape in its device parts —
+    the probe's matmul, its top-nprobe selection, stage 2, stage 3 — and
+    the exact tail's two kernels on the batch's real survivors (C =
+    ndocs; fused_rerank also for one of its queries, B=1), each eager and
+    by CUDA-graph replay, against its bound; the tail's kernels also
+    held to their plain versions on those survivors (``max_abs_err``)."""
+    import torch
+    from repro_torch.core.plaid import (stage2_candidates_batch,
+                                        stage3_approx_score_batch,
+                                        topk_ordered)
+    searcher = make_searcher(path, device)
+    p = searcher.params
+    st = searcher.probe_batch([unit(rng.normal(size=(s.Lq, s.d)))
+                               for _ in range(s.B)])
+    q2, cent = st["q"].reshape(-1, s.d), searcher.centroids
+    B, Lq, K, d = s.B, s.Lq, s.K, s.d
+    flops_peak, bw_peak = peaks
+
+    def bound_of(n_bytes, ops):
+        t_bytes, t_ops = n_bytes / bw_peak, ops / flops_peak
+        return (max(t_bytes, t_ops) * 1e3,
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    out = {"B": B, "Lq": Lq, "K": K, "d": d, "nprobe": p.nprobe,
+           "candidate_cap": p.candidate_cap, "ndocs": p.ndocs}
+    # bytes: the centroid table, the queries and the (B, Lq, K) scores
+    # written once; operations: 2·d per (query token, centroid)
+    out["probe_matmul"] = measure(
+        {"ms": lambda: torch.matmul(q2, cent.T)},
+        lambda: bound_of((K * d + B * Lq * d + B * Lq * K) * 4,
+                         2 * B * Lq * K * d), graph=True)
+    # the scores read once, (value, index) pairs written; a compare each
+    out["probe_select"] = measure(
+        {"ms": lambda: topk_ordered(st["scores_c"], p.nprobe)},
+        lambda: bound_of(B * Lq * K * 4 + B * Lq * p.nprobe * 12,
+                         B * Lq * K), graph=True)
+    P = searcher.ivf_padded.shape[1]
+    # the probed ids, their padded lists, the (B, cap) candidates
+    out["stage2"] = measure(
+        {"ms": lambda: stage2_candidates_batch(searcher.ivf_padded,
+                                               st["cids"], p.candidate_cap)},
+        lambda: bound_of(B * Lq * p.nprobe * (4 + P * 4)
+                         + B * p.candidate_cap * 4, 0), graph=True)
+    codes, valid = searcher.to_device(*searcher.gather_codes_batch(
+        st["cand"].cpu().numpy()))
+    # the scores, the codes and flags read once, (B, C) written; a max
+    # per (query token, candidate token)
+    out["stage3"] = measure(
+        {"ms": lambda: stage3_approx_score_batch(st["scores_c"], codes,
+                                                 valid, st["q_valid"])},
+        lambda: bound_of(B * Lq * K * 4 + codes.numel() * 5 + B * Lq
+                         + B * p.candidate_cap * 4, codes.numel() * Lq),
+        graph=True)
+    final = searcher.approx_select_batch(st["scores_c"], codes, valid,
+                                         st["q_valid"], st["cand"])
+    del codes, valid
+    f_codes, f_packed, f_valid = searcher.to_device(
+        *searcher.gather_tokens_batch(final.cpu().numpy()))
+    x = dict(q=st["q"], packed=f_packed, cids=f_codes, valid=f_valid,
+             cmask=final >= 0, q_valid=st["q_valid"], centroids=cent,
+             bw=searcher.bucket_weights)
+    x1 = rows_of(x, 3)
+    err, err1 = tail_errors(x), tail_errors(x1)
+    out["fused_rerank"] = dict(measure(tile_fns(x, True),
+                                       lambda: bound(x, s, peaks, True),
+                                       graph=True),
+                               max_abs_err=err["fused_rerank"])
+    out["decompress_maxsim"] = dict(measure(tile_fns(x, False),
+                                            lambda: bound(x, s, peaks, False),
+                                            graph=True),
+                                    max_abs_err=err["decompress_maxsim"])
+    out["fused_rerank_b1"] = dict(measure(tile_fns(x1, True),
+                                          lambda: bound(x1, s, peaks, True),
+                                          graph=True),
+                                  max_abs_err=err1["fused_rerank"])
+    log(f"colbert timing: {out}")
+    return out
+
+
 # ---------------------------------------------------------------------------
+
+# each kernel's source and the TPU kernel it replaces
+SOURCES = {
+    "decompress_maxsim": (
+        "src/repro_torch/kernels/csrc/decompress_maxsim.cu",
+        "src/repro/kernels/decompress_maxsim/decompress_maxsim.py:132"),
+    "fused_rerank": (
+        "src/repro_torch/kernels/csrc/fused_rerank.cu",
+        "src/repro/kernels/fused_rerank/fused_rerank.py:144"),
+    "splade_score": (
+        "src/repro_torch/kernels/csrc/splade_score.cu",
+        "src/repro/kernels/splade_score/splade_score.py:97"),
+    "splade_topk": (
+        "src/repro_torch/kernels/csrc/splade_score.cu",
+        "src/repro/kernels/splade_score/splade_score.py:97"),
+    "maxsim": (
+        "src/repro_torch/kernels/csrc/maxsim.cu",
+        "src/repro/kernels/maxsim/maxsim.py:83"),
+}
+
+
+def kernel_entries(served: dict, colbert: dict, times: dict, ctimes: dict,
+                   err: dict, s: Shapes) -> list:
+    """The ``{"kernels": [...]}`` line's entries: one per main path and
+    kernel, with that path's launches from its own run (counts set to 0
+    just before it, read just after) and the kernel timed at that path's
+    shape: the SPLADE methods served with the device stage 1 (C =
+    first_k; every kernel, those off this path at 0 launches), and each
+    colbert run's tail kernel on real survivors (C = ndocs)."""
+    paths = [("serve_device", served["device"][0]["launches"], kname,
+              times[kname]["batch"], err[kname], s.C) for kname in SOURCES]
+    paths += [(label, colbert[label]["launches"], kname, ctimes[t_key],
+               ctimes[t_key]["max_abs_err"], s.ndocs)
+              for label, kname, t_key in (
+                  ("colbert", "fused_rerank", "fused_rerank"),
+                  ("colbert_split", "decompress_maxsim", "decompress_maxsim"),
+                  ("colbert_resident", "fused_rerank", "fused_rerank"),
+                  ("colbert_b1", "fused_rerank", "fused_rerank_b1"))]
+    out = []
+    for path_name, launches, kname, t, max_err, C in paths:
+        src, replaces = SOURCES[kname]
+        bound_ms, bound_by = t["bound"]
+        out.append({
+            "name": kname, "path": path_name, "C": C, "route": "cuda",
+            "source": src, "replaces": replaces,
+            "launches": launches[kname], "max_abs_err": max_err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": t["library_ms"]})
+    return out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1009,31 +1400,21 @@ def main(argv=None) -> int:
         served = serve(rng, s, path, topics, device)
         log(f"phase 4 serve: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+        colbert, colbert_stages, colbert_counts = serve_colbert(
+            sub_rng(args.seed, "colbert"), s, path, device)
+        log(f"phase 4 colbert: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         times = time_kernels(rng, s, device, peaks, path, topics, args.seed)
+        ctimes = time_colbert(sub_rng(args.seed, "colbert timing"), s,
+                              device, peaks, path)
         log(f"phase 5 timing: {time.perf_counter() - t0:.1f} s")
 
     name, limit = (p.strip() for p in card.split(",", 1))
-    sources = {
-        "decompress_maxsim": (
-            "src/repro_torch/kernels/csrc/decompress_maxsim.cu",
-            "src/repro/kernels/decompress_maxsim/decompress_maxsim.py:132"),
-        "fused_rerank": (
-            "src/repro_torch/kernels/csrc/fused_rerank.cu",
-            "src/repro/kernels/fused_rerank/fused_rerank.py:144"),
-        "splade_score": (
-            "src/repro_torch/kernels/csrc/splade_score.cu",
-            "src/repro/kernels/splade_score/splade_score.py:97"),
-        "splade_topk": (
-            "src/repro_torch/kernels/csrc/splade_score.cu",
-            "src/repro/kernels/splade_score/splade_score.py:97"),
-        "maxsim": (
-            "src/repro_torch/kernels/csrc/maxsim.cu",
-            "src/repro/kernels/maxsim/maxsim.py:83"),
-    }
-    # launches on the newest main path: serving with the device stage 1
-    launches = served["device"][0]["launches"]
-    kernels = []
-    for kname, (src, replaces) in sources.items():
+    per_batch = {b: lines[0]["launches_per_batch"]
+                 for b, lines in served.items()}
+    per_batch.update({b: line["launches_per_batch"]
+                      for b, line in colbert.items()})
+    for kname in SOURCES:
         for at in ("batch", "b1"):
             t = times[kname][at]
             bound_ms, bound_by = t["bound"]
@@ -1044,26 +1425,24 @@ def main(argv=None) -> int:
                 "turns_ms": t["turns"],
                 **{n: t[n] for n in ("graph_ms", "library_graph_ms")
                    if n in t},
-                "launches_per_batch": {
-                    b: served[b][0]["launches_per_batch"][kname]
-                    for b in served},
+                "launches_per_batch": {b: n[kname]
+                                       for b, n in per_batch.items()},
                 "shapes": dataclasses.asdict(s) if at == "batch"
                 else dict(dataclasses.asdict(s), B=1),
                 "card": name, "power_limit": limit}), flush=True)
-        t = times[kname]["batch"]
-        bound_ms, bound_by = t["bound"]
-        kernels.append({
-            "name": kname, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[kname],
-            "max_abs_err": err[kname], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": t["library_ms"]})
+    kernels = kernel_entries(served, colbert, times, ctimes, err, s)
     print(json.dumps({"phase": "stage1_breakdown", **times["stage1"],
                       "card": name, "power_limit": limit}), flush=True)
     for backend, lines in served.items():
         print(json.dumps({"phase": "serve", "splade_backend": backend,
                           "runs": lines, "card": name,
                           "power_limit": limit}), flush=True)
+    print(json.dumps({"phase": "serve_colbert", "runs": colbert,
+                      "stages_vs_cpu": colbert_stages,
+                      "candidates": colbert_counts, "card": name,
+                      "power_limit": limit}), flush=True)
+    print(json.dumps({"phase": "colbert_timing", **ctimes, "card": name,
+                      "power_limit": limit}), flush=True)
     log(f"chip_smoke wall, build included: "
         f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

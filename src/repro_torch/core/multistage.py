@@ -1,17 +1,20 @@
 """ColBERT-serve's multi-stage retrieval pipeline.
 
-Three of the paper's four systems (``colbert``, full PLAID, is not
-ported yet):
+The paper's four systems:
 
+  * ``colbert``  — full PLAID end to end (mmap pool, or resident on the
+    device with ``PLAIDSearcher(device_resident=True)``)
   * ``splade``   — SPLADEv2 w/ PISA-style impact index only
   * ``rerank``   — SPLADE top-``first_k`` → MMAP ColBERT exact rescoring
   * ``hybrid``   — rerank + α-interpolated z-normed score fusion
 
-Stage 1 scores on the host CSR index (``splade_backend="host"``) or on
-the device from padded postings through the SPLADE kernel
-(``"device"``); the residual gather runs on the host from the
-memory-mapped pool; the stage-4 tail runs on the searcher's device
-through the CUDA kernels.
+Stage 1 of the SPLADE methods scores on the host CSR index
+(``splade_backend="host"``) or on the device from padded postings
+through the SPLADE kernel (``"device"``); ``colbert`` probes centroids,
+generates and approximately scores IVF candidates on the device. The
+gathers run on the host from the memory-mapped pool (on the device for
+a resident pool); the exact tail runs on the searcher's device through
+the CUDA kernels.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ import torch
 
 from repro_torch.common import resolve_device
 from repro_torch.core import hybrid as hybrid_mod
-from repro_torch.core.plaid import PLAIDSearcher, pad_query_batch_host
+from repro_torch.core.plaid import (PLAIDSearcher, pad_query_batch_host,
+                                    pad_topk_host, topk_host)
 from repro_torch.index.splade_device import SpladeDeviceCache
 from repro_torch.index.splade_index import SpladeIndex
 from repro_torch.serving.pipeline import (
@@ -41,7 +45,7 @@ from repro_torch.serving.pipeline import (
 # "jax" backend (a plain segment-sum on the device) has none here
 SPLADE_BACKENDS = ("host", "device")
 RERANK_BACKENDS = ("fused", "split")
-METHODS = ("splade", "rerank", "hybrid")
+METHODS = ("colbert", "splade", "rerank", "hybrid")
 
 
 def check_splade_backend(backend: str) -> str:
@@ -179,10 +183,13 @@ class MultiStageRetriever:
     def _build_plan(self, method: str) -> StagePlan:
         """Host stages touch only numpy (mmap gathers, padding); every
         host↔device copy and every device sync lives in a device
-        stage."""
+        stage. With the pool resident on the device the gathers run
+        there and are device stages."""
         p = self.params
         searcher = self.searcher
-        access = searcher.index.store.stats
+        dr = searcher.device_resident
+        gather_kind = DEVICE if dr else HOST
+        access = None if dr else searcher.index.store.stats
         backend = self.splade_backend
         s1_kind = HOST if backend == "host" else DEVICE
 
@@ -213,6 +220,43 @@ class MultiStageRetriever:
             return cb.with_state(q=q, q_valid=q_valid, g_codes=codes,
                                  g_packed=packed, g_valid=valid)
 
+        # colbert: centroid probe → IVF candidates → codes gather →
+        # approximate scores → the ndocs survivors' residual gather; its
+        # exact tail is the rerank tail on the survivors (``pids_b``)
+        def probe(cb):
+            st = searcher.probe_batch(cb.q_embs)
+            # the host gather reads host candidates: copy them here
+            cand = st["cand"] if dr else st["cand"].cpu().numpy()
+            return cb.with_state(q=st["q"], q_valid=st["q_valid"],
+                                 scores_c=st["scores_c"], cand=st["cand"],
+                                 cand_g=cand)
+
+        def gather_codes(cb):
+            codes, valid = searcher.gather_codes_batch(cb.state["cand_g"])
+            return cb.with_state(c_codes=codes, c_valid=valid)
+
+        def approx(cb):
+            s = cb.state
+            codes, valid = searcher.to_device(s["c_codes"], s["c_valid"])
+            final = searcher.approx_select_batch(
+                s["scores_c"], codes, valid, s["q_valid"], s["cand"])
+            return cb.with_state(final=final,
+                                 pids_b=final.cpu().numpy().astype(np.int64))
+
+        def gather_survivors(cb):
+            s = cb.state
+            codes, packed, valid = searcher.gather_tokens_batch(
+                s["final"] if dr else s["pids_b"])
+            return cb.with_state(g_codes=codes, g_packed=packed,
+                                 g_valid=valid)
+
+        def answer(cb, pids, scores):
+            # as in the reference, colbert answers k columns, rerank and
+            # hybrid min(k, first_k)
+            if method == "colbert":
+                pids, scores = pad_topk_host(pids, scores, cb.k)
+            return cb.evolve(pids=pids, scores=scores)
+
         def device_inputs(cb):
             s = cb.state
             return searcher.to_device(s["q"], s["q_valid"], s["g_codes"],
@@ -221,8 +265,8 @@ class MultiStageRetriever:
 
         def score(cb):
             q, q_valid, codes, packed, valid, mask = device_inputs(cb)
-            c = searcher.score_gathered_lazy(q, q_valid, codes, packed,
-                                             valid, mask)
+            c = searcher.exact_score_gathered(q, q_valid, codes, packed,
+                                              valid, mask)
             if method == "hybrid":
                 (s_scores,) = searcher.to_device(cb.state["s_scores"])
                 c = hybrid_mod.hybrid_scores(
@@ -234,12 +278,7 @@ class MultiStageRetriever:
         def fuse_split(cb):
             s = cb.state
             final = s["final_dev"].cpu().numpy()          # device sync
-            order = np.argsort(-final, axis=1, kind="stable")[:, :cb.k]
-            sorted_final = np.take_along_axis(final, order, axis=1)
-            out_pids = np.where(
-                sorted_final > -np.inf,
-                np.take_along_axis(s["pids_b"], order, axis=1), -1)
-            return cb.evolve(pids=out_pids, scores=sorted_final)
+            return answer(cb, *topk_host(final, s["pids_b"], cb.k))
 
         def score_fused(cb):
             q, q_valid, codes, packed, valid, mask = device_inputs(cb)
@@ -258,7 +297,7 @@ class MultiStageRetriever:
             s = cb.state
             pids, scores = searcher.finalize_topk_fused(
                 s["top_s"], s["top_i"], s["pids_b"])      # device sync
-            return cb.evolve(pids=pids, scores=scores)
+            return answer(cb, pids, scores)
 
         # the launching stage opens the async window, the sync stage
         # closes it; each tail launches one hand-written kernel
@@ -268,13 +307,23 @@ class MultiStageRetriever:
                     Stage("fused_rerank:sync", DEVICE, fuse_fused,
                           closes_async=True, device_dispatches=0))
         else:
-            tail = (Stage("device_score:maxsim", DEVICE, score,
-                          opens_async=True, device_dispatches=1),
+            score_name = ("device_score:exact" if method == "colbert"
+                          else "device_score:maxsim")
+            tail = (Stage(score_name, DEVICE, score, opens_async=True,
+                          device_dispatches=1),
                     Stage("fuse_topk", DEVICE, fuse_split,
                           closes_async=True, device_dispatches=0))
-        stages = (Stage("splade_stage1", s1_kind, splade_stage),
-                  Stage("host_gather:residuals", HOST, gather)) + tail
-        return StagePlan(method=method, stages=stages, access_stats=access)
+        if method == "colbert":
+            head = (Stage("plaid_probe", DEVICE, probe),
+                    Stage("host_gather:codes", gather_kind, gather_codes),
+                    Stage("device_score:approx", DEVICE, approx),
+                    Stage("host_gather:residuals", gather_kind,
+                          gather_survivors))
+        else:
+            head = (Stage("splade_stage1", s1_kind, splade_stage),
+                    Stage("host_gather:residuals", gather_kind, gather))
+        return StagePlan(method=method, stages=head + tail,
+                         access_stats=access)
 
     # ------------------------------------------------------------------
     def search_batch(self, method, q_embs=None, term_ids=None,
@@ -286,8 +335,10 @@ class MultiStageRetriever:
         batched). ``q_embs``/``term_ids``/``term_weights``: per-query
         sequences (ragged lengths fine). ``alpha``: scalar, per-query
         sequence (None entries take the default), or None. Returns
-        (pids (B, k), scores (B, k)); a group's columns past
-        min(k, first_k) are (-1, -inf)."""
+        (pids (B, k), scores (B, k)); ``colbert`` pads past min(k,
+        ndocs) with (-1, -inf), and a ``rerank``, ``hybrid`` or
+        ``splade`` group returns min(k, first_k) columns, padded the same
+        way in a mixed batch."""
         p = self.params
         k = p.k if k is None else k
         n = len(q_embs) if q_embs is not None else len(term_ids)
@@ -314,7 +365,7 @@ class MultiStageRetriever:
     @staticmethod
     def scatter_group(out_pids, out_scores, idx, pids, scores):
         """Scatter one method group's results back into request order.
-        Groups return min(k, first_k) columns — they fill the prefix,
+        Groups return at most k columns — they fill the prefix,
         leaving the (-1, -inf) tail as padding."""
         w = pids.shape[1]
         out_pids[idx, :w] = pids

@@ -13,6 +13,23 @@ class IVF:
     offsets: np.ndarray      # (K+1,) int64
     n_centroids: int
 
+    def max_list_len(self) -> int:
+        return int(np.max(np.diff(self.offsets))) if len(self.pids) else 0
+
+    def as_padded(self, pad_to: int | None = None) -> np.ndarray:
+        """Dense (K, pad) int32 with -1 fill, each list cut at ``pad``
+        (default the longest list) — the device-resident form."""
+        pad = pad_to or self.max_list_len()
+        lens = np.minimum(np.diff(self.offsets), pad)
+        rows = np.repeat(np.arange(self.n_centroids), lens)
+        # a posting's slot in its row: its place in the flat kept list
+        # minus the row's first place there
+        first = np.cumsum(lens) - lens
+        cols = np.arange(len(rows)) - np.repeat(first, lens)
+        out = np.full((self.n_centroids, pad), -1, np.int32)
+        out[rows, cols] = self.pids[self.offsets[rows] + cols]
+        return out
+
 
 def build_ivf(token_cids: np.ndarray, token_pids: np.ndarray,
               n_centroids: int) -> IVF:

@@ -20,7 +20,7 @@ from repro_torch.core.multistage import MultiStageRetriever
 @dataclasses.dataclass
 class Request:
     qid: int
-    method: str                      # splade | rerank | hybrid
+    method: str                      # colbert | splade | rerank | hybrid
     q_emb: Optional[np.ndarray] = None
     term_ids: Optional[np.ndarray] = None
     term_weights: Optional[np.ndarray] = None

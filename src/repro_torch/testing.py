@@ -12,11 +12,21 @@ is asked for ``REF_MARGIN`` more places than the answer (or for every
 candidate): its extra places show which candidates tie with the
 answer's last ones, and every answer id is then checked, the last
 included.
+
+A ``colbert`` answer may differ by more than a swap inside a tie group:
+a tie at the centroid probe's or the approximate stage's boundary
+changes the candidates themselves. ``colbert_tie_reference`` shows such
+a tie and recomputes the reference past it.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from repro_torch.core.plaid import (stage2_candidates_batch,
+                                    stage3_approx_score_batch)
+from repro_torch.kernels.fused_rerank.ref import stable_topk
 
 RTOL = 1e-5
 ATOL = 1e-5
@@ -76,3 +86,89 @@ def assert_topk_match(ref_scores, ref_ids, got_scores, got_ids, *,
         real = gi[b][gi[b] >= 0]
         if len(np.unique(real)) != len(real):
             raise AssertionError(f"{where}: repeated ids {gi[b]}")
+
+
+def colbert_tie_reference(ref, dev, q_emb, k: int):
+    """The reference for a ``colbert`` answer of the ``dev`` searcher
+    that differs from the ``ref`` searcher's (same index and params; ref
+    on the CPU, dev on the card).
+
+    The two sum the centroid probe and the approximate scores in
+    different orders, so a centroid at a token's ``nprobe`` boundary, or
+    a candidate at the ``ndocs`` boundary, may fall on either side when
+    its score ties with the next one. This shows on ``dev`` that the
+    boundary where the two stages differ is such a tie (the two scores
+    within tolerance), reruns ``ref``'s later stages from ``dev``'s
+    probed centroids or survivors, and returns that answer: (pids
+    (k + REF_MARGIN,), scores, route), route naming the boundaries that
+    tied ("probe", "approx" or both). Raises AssertionError where the
+    stages differ without a tie, or do not differ at all."""
+    p = ref.params
+    rs, ds = ref.probe_batch([q_emb]), dev.probe_batch([q_emb])
+    r_cids, d_cids = rs["cids"][0].numpy(), ds["cids"][0].cpu().numpy()
+    routes = []
+    cand = rs["cand"]
+    moved = [t for t in range(len(r_cids))
+             if set(r_cids[t]) != set(d_cids[t])]
+    if moved:
+        top = torch.topk(ds["scores_c"][0], p.nprobe + 1).values.cpu()
+        for t in moved:
+            a, b = float(top[t, p.nprobe - 1]), float(top[t, p.nprobe])
+            if not _close(b, a, RTOL, ATOL):
+                raise AssertionError(
+                    f"token {t}: probed centroids differ without a tie "
+                    f"at the nprobe boundary ({a!r} vs {b!r})")
+        routes.append("probe")
+        cand = stage2_candidates_batch(ref.ivf_padded,
+                                       torch.as_tensor(d_cids)[None],
+                                       p.candidate_cap)
+    else:
+        np.testing.assert_array_equal(ds["cand"].cpu().numpy(),
+                                      cand.numpy(),
+                                      err_msg="stage-2 candidates")
+
+    def survivors(s, scores_c, q_valid):
+        (c,) = s.to_device(cand)
+        codes, valid = s.to_device(*s.gather_codes_batch(
+            c if s.device_resident else cand.numpy()))
+        approx = stage3_approx_score_batch(scores_c, codes, valid, q_valid)
+        return (s.approx_select_batch(scores_c, codes, valid, q_valid, c),
+                approx.masked_fill(c < 0, float("-inf")))
+
+    final, _ = survivors(ref, rs["scores_c"], rs["q_valid"])
+    d_final, d_approx = survivors(dev, ds["scores_c"], ds["q_valid"])
+    d_final = d_final.cpu()
+    if set(final[0].tolist()) != set(d_final[0].tolist()):
+        ndocs = final.shape[1]
+        top = stable_topk(d_approx, ndocs + 1)[0][0].cpu()
+        a, b = float(top[ndocs - 1]), float(top[-1])
+        if len(top) == ndocs or not _close(b, a, RTOL, ATOL):
+            raise AssertionError(
+                f"survivors differ without a tie at the ndocs boundary "
+                f"({a!r} vs {b!r})")
+        routes.append("approx")
+        final = d_final
+    if not routes:
+        raise AssertionError("the answer differs, but the probe and the "
+                             "survivors equal the reference's")
+    scores = ref.rerank_batch([q_emb], final.numpy())[0]
+    order = np.argsort(-scores, kind="stable")[:k + REF_MARGIN]
+    pids = np.where(scores[order] > -np.inf, final[0].numpy()[order], -1)
+    return pids, scores[order], "+".join(routes)
+
+
+def assert_colbert_match(ref, dev, q_emb, want, got, *, what: str = ""
+                         ) -> str:
+    """Hold one ``colbert`` answer of the ``dev`` searcher, got = (scores,
+    pids), to the ``ref`` searcher's, want = (scores, pids) asked for
+    ``REF_MARGIN`` places deeper; where they differ, to
+    :func:`colbert_tie_reference`. Returns the tie's route, or "" when
+    the answers met the bar directly."""
+    try:
+        assert_topk_match(*want, *got, what=what)
+        return ""
+    except AssertionError:
+        k = np.shape(got[1])[-1]
+        pids, scores, route = colbert_tie_reference(ref, dev, q_emb, k)
+        assert_topk_match(scores, pids, *got, what=f"{what} ({route} tie)")
+        return route

@@ -24,7 +24,9 @@ import torch
 
 from repro_torch.core.multistage import (METHODS, MultiStageParams,
                                          MultiStageRetriever)
-from repro_torch.core.plaid import PLAIDSearcher
+from repro_torch.core.plaid import (PLAIDSearcher, PlaidParams,
+                                    stage2_candidates_batch,
+                                    stage3_approx_score_batch)
 from repro_torch.index.builder import ColBERTIndex, write_index
 from repro_torch.index.residual import decode_embeddings
 from repro_torch.index.splade_device import SpladeDeviceCache
@@ -45,7 +47,8 @@ from repro_torch.kernels.splade_score.ref import (block_topk_ref,
                                                   splade_block_scores_batch_ref,
                                                   splade_row_scores_batch_ref)
 from repro_torch.serving.engine import ServeEngine
-from repro_torch.testing import REF_MARGIN, assert_topk_match
+from repro_torch.testing import (REF_MARGIN, assert_colbert_match,
+                                 assert_topk_match)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -212,7 +215,17 @@ def test_serving_path_matches_cpu(cuda, index_dir):
         fused = gpu.search_batch(method, **kw)
         gpu.set_rerank_backend("split")
         split = gpu.search_batch(method, **kw)
-        assert_topk_match(want[1], want[0], fused[1], fused[0], what=method)
+        if method == "colbert":
+            # a tie at the probe's or the approximate stage's boundary
+            # may change the candidates: held to the tie rule
+            for b, q in enumerate(kw["q_embs"]):
+                assert_colbert_match(
+                    cpu.searcher, gpu.searcher, q,
+                    (want[1][b], want[0][b]), (fused[1][b], fused[0][b]),
+                    what=f"colbert row {b}")
+        else:
+            assert_topk_match(want[1], want[0], fused[1], fused[0],
+                              what=method)
         np.testing.assert_array_equal(fused[0], split[0])
         np.testing.assert_array_equal(fused[1].view(np.uint32),
                                       split[1].view(np.uint32))
@@ -400,7 +413,7 @@ def test_device_stage1_serving_matches_cpu(cuda, index_dir):
                                   backend="host")
     np.testing.assert_array_equal(dp, hp)
     np.testing.assert_array_equal(ds.view(np.uint32), hs.view(np.uint32))
-    for method in METHODS:
+    for method in ("splade", "rerank", "hybrid"):
         before = splade_row_topk_batch.launches
         got = gpu.search_batch(method, **kw)
         assert splade_row_topk_batch.launches == before + 1
@@ -428,3 +441,84 @@ def test_splade_device_cache_sorts_unsorted_rows(cuda, index_dir):
         hp, hs = rev.score_batch_host(tids, tw, k)
         np.testing.assert_array_equal(dp, hp)
         np.testing.assert_array_equal(ds.view(np.uint32), hs.view(np.uint32))
+
+
+def test_colbert_on_card_matches_cpu(cuda, index_dir):
+    """``colbert`` on the card, mmap and resident pools, fused and split
+    tails, at a cap that binds: every answer equals the CPU engine's
+    under the tie rule; within the card fused == split and resident ==
+    mmap bit for bit; the resident path launches fused_rerank and no
+    SPLADE kernel; the codes gather touches no residual page."""
+    rng = np.random.default_rng(5)
+    qs = [rng.normal(size=(int(rng.integers(4, 33)), 64)).astype(np.float32)
+          for _ in range(12)]
+    params = PlaidParams(nprobe=4, candidate_cap=96, ndocs=40, k=30)
+
+    def retriever(device, resident=False):
+        return MultiStageRetriever(
+            SpladeIndex.load(index_dir / "splade"),
+            PLAIDSearcher(ColBERTIndex(index_dir / "colbert"), params,
+                          device_resident=resident, device=device),
+            MultiStageParams(first_k=60, k=30), device=device)
+
+    cpu = retriever("cpu")
+    want = cpu.search_batch("colbert", q_embs=qs, k=30 + REF_MARGIN)
+    answers = {}
+    for pool in ("mmap", "resident"):
+        gpu = retriever(cuda, resident=pool == "resident")
+        for tail in ("fused", "split"):
+            gpu.set_rerank_backend(tail)
+            gpu.searcher.index.store.stats.reset()
+            gpu.reset_stage_stats()
+            before = (fused_rerank_topk_batch.launches,
+                      decompress_maxsim_scores_batch.launches,
+                      splade_row_topk_batch.launches)
+            answers[pool, tail] = got = gpu.search_batch("colbert",
+                                                         q_embs=qs, k=30)
+            after = (fused_rerank_topk_batch.launches,
+                     decompress_maxsim_scores_batch.launches,
+                     splade_row_topk_batch.launches)
+            assert tuple(a - b for a, b in zip(after, before)) == (
+                (1, 0, 0) if tail == "fused" else (0, 1, 0))
+            stages = gpu.pipeline_stats.snapshot()["stages"]
+            assert stages["host_gather:codes"]["pages_touched"] == 0
+            for b, q in enumerate(qs):
+                assert_colbert_match(cpu.searcher, gpu.searcher, q,
+                                     (want[1][b], want[0][b]),
+                                     (got[1][b], got[0][b]),
+                                     what=f"{pool} {tail} row {b}")
+    for key in answers:
+        np.testing.assert_array_equal(answers[key][0],
+                                      answers["mmap", "fused"][0])
+        np.testing.assert_array_equal(
+            answers[key][1].view(np.uint32),
+            answers["mmap", "fused"][1].view(np.uint32))
+
+
+def test_colbert_probe_stages_match_cpu(cuda, index_dir):
+    """The probe scores allclose to the CPU's, and a query's probe on the
+    card is its batch row's bit for bit; stage 2 from equal probed
+    centroids equals the CPU's exactly; the approximate scores from
+    equal candidates are allclose."""
+    rng = np.random.default_rng(6)
+    qs = [rng.normal(size=(int(rng.integers(4, 33)), 64)).astype(np.float32)
+          for _ in range(9)]
+    params = PlaidParams(nprobe=4, candidate_cap=96, ndocs=40, k=30)
+    index = ColBERTIndex(index_dir / "colbert")
+    gpu = PLAIDSearcher(index, params, device=cuda)
+    cpu = PLAIDSearcher(index, params, device="cpu")
+    g, c = gpu.probe_batch(qs), cpu.probe_batch(qs)
+    np.testing.assert_allclose(g["scores_c"].cpu().numpy(),
+                               c["scores_c"].numpy(), **TOL)
+    one = gpu.probe_batch(qs[4:5])
+    lq = len(qs[4])
+    assert torch.equal(one["scores_c"][0, :lq], g["scores_c"][4, :lq])
+    cand = stage2_candidates_batch(gpu.ivf_padded, c["cids"].to(cuda),
+                                   params.candidate_cap)
+    np.testing.assert_array_equal(cand.cpu().numpy(), c["cand"].numpy())
+    codes, valid = cpu.gather_codes_batch(c["cand"].numpy())
+    approx = [stage3_approx_score_batch(st["scores_c"],
+                                        *s.to_device(codes, valid),
+                                        st["q_valid"]).cpu().numpy()
+              for s, st in ((gpu, g), (cpu, c))]
+    np.testing.assert_allclose(*approx, **TOL)

@@ -172,14 +172,14 @@ def test_server_serves_mixed_requests(retr, jax_retr, small_corpus):
 
 
 def test_server_isolates_a_failing_request(retr, small_corpus):
-    reqs = _requests(small_corpus, ["rerank", "colbert", "hybrid"],
+    reqs = _requests(small_corpus, ["rerank", "dense", "hybrid"],
                      [5, 5, 5], [None] * 3)
     server = RetrievalServer(ServeEngine(retr), max_batch=4,
                              batch_timeout_ms=50.0)
     server.start()
     try:
         futs = [server.submit(r) for r in reqs]
-        with pytest.raises(ValueError, match="colbert"):
+        with pytest.raises(ValueError, match="dense"):
             futs[1].result(timeout=60)
         assert futs[0].result(timeout=60).pids.shape == (5,)
         assert futs[2].result(timeout=60).pids.shape == (5,)

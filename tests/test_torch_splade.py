@@ -57,6 +57,9 @@ from repro_torch.testing import REF_MARGIN, assert_topk_match
 KTOL = dict(rtol=1e-4, atol=1e-5)
 FIRST_K = 50
 
+# the methods with a SPLADE stage 1 (``colbert`` probes centroids)
+SPLADE_METHODS = tuple(m for m in METHODS if m != "colbert")
+
 
 @pytest.fixture(scope="module")
 def jidx(small_corpus):
@@ -537,7 +540,7 @@ def _jax_answer(jr, reqs):
 
 
 @pytest.mark.parametrize("backend", ["jax", "pallas"])
-@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("method", SPLADE_METHODS)
 def test_device_backend_matches_jax(retr, jax_retrs, small_corpus, method,
                                     backend):
     reqs = _requests(small_corpus, [method] * 8, [20] * 8, [None] * 8)
@@ -576,7 +579,7 @@ def test_device_stage1_equals_host_stage1(retr, small_corpus):
         retr.run_splade_batch(tids, tw, backend="pallas")
 
 
-@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("method", SPLADE_METHODS)
 def test_device_backend_answers_equal_host_backend(retr, small_corpus,
                                                    method):
     """Stage 1 is bitwise equal, so whole answers are too."""
