@@ -50,6 +50,32 @@ Phases, in order; any failure raises and the script exits non-zero:
              differ), the split and resident runs equal the mmap fused
              run bit for bit, and stages 1-3 of one batch are held to the
              CPU's;
+4c. front door — caches (``CacheHierarchy(exact_entries=256,
+             stage1_entries=256)``), admission and the adaptive batch cap
+             on the phase-3 index, device stage 1, fused tail. A: a cold
+             mixed batch of 32 (8 of each method, k ∈ {10, 100}, a
+             quarter with their own α) and the same batch again: 32 exact
+             hits equal to the cold answers bit for bit, no launch, no
+             stage run. B: hybrid and rerank on the terms the batch's
+             splade requests scored, at another α or k: all stage-1
+             hits, no SPLADE launch, one launch of each tail kernel. C:
+             the batch's colbert requests at the other k, mmap and
+             resident pools: all survivor hits, no probe or approximate
+             stage, no codes read, one fused_rerank launch. D: a batch
+             of 32 with 16 exact hits. B-D equal an engine without caches
+             bit for bit. E: ``bump_index_generation()`` purges every
+             entry; the batch then misses everything and gives the same
+             bits. F: ``RetrievalServer`` admission at an SLO between the
+             predicted cheap and full costs (from the warm stage EWMAs)
+             degrades hybrid/rerank to the splade plan (its bits, not
+             stored). G: a request with ``deadline_ms=0.001`` is shed
+             before it is queued. H: an SLO below a request's service
+             time halves ``batch_cap`` to 1, a slack one grows it back.
+             Then a trace: 256 requests drawn with Zipf s=1.1 from 64
+             distinct ones (16 queries × the four methods), served in
+             waves of 32, caches off and on in turns, twice each; every
+             repeat equals its first answer bit for bit. Every distinct
+             answer of the phase is held to the CPU engine;
 5. time    — time each kernel with CUDA events at the serve shapes, and
              each at B=1, in an eager loop (the rerank tail's two
              kernels, the SPLADE kernel's two entry points and
@@ -65,8 +91,9 @@ Phases, in order; any failure raises and the script exits non-zero:
              eager and by replay, each against its bound.
 
 The ``{"kernels": [...]}`` line lists each kernel once per main path
-(``path``): the SPLADE methods served with the device stage 1, and each
-colbert run with its tail's kernel; ``launches`` is that path's own run's
+(``path``): the SPLADE methods served with the device stage 1, each
+colbert run with its tail's kernel, and the front door's cold mixed
+batch (``front_door``) with the three kernels of its path; ``launches`` is that path's own run's
 count, and the times are at that path's candidate width (``C``).
 
 Arithmetic is IEEE fp32: TF32 is switched off for matmuls and cuDNN.
@@ -865,6 +892,477 @@ def serve_colbert(rng, s: Shapes, path: pathlib.Path, device):
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: the front door (caches, admission, the adaptive batch cap)
+# ---------------------------------------------------------------------------
+
+DOOR_METHODS = ("splade", "rerank", "hybrid", "colbert")
+DOOR_KERNELS = ("splade_topk", "fused_rerank", "decompress_maxsim")
+
+
+def door_requests(rng, s: Shapes, topics: np.ndarray, n: int,
+                  methods=DOOR_METHODS, qid0: int = 0):
+    """n requests of distinct random queries (a unit query of ``s.Lq``
+    tokens and ``s.query_terms`` topic terms each), the methods in turn,
+    k ∈ {10, 100}, a quarter with their own α."""
+    from repro_torch.serving.engine import Request
+    term_ids, term_w = topic_terms(rng, topics, n, s.query_terms)
+    reqs = []
+    for i in range(n):
+        alpha = None if i % 4 else float(rng.uniform(0.1, 0.9))
+        reqs.append(Request(
+            qid=qid0 + i, method=methods[i % len(methods)],
+            q_emb=unit(rng.normal(size=(s.Lq, s.d))), term_ids=term_ids[i],
+            term_weights=term_w[i], k=(10, 100)[(i // len(methods)) % 2],
+            alpha=alpha))
+    return reqs
+
+
+def fresh(reqs, **kw):
+    """Copies of requests without their lifecycle record (``ctx``), so
+    that an engine resolves each anew; ``kw`` replaces fields."""
+    return [dataclasses.replace(r, ctx=None, **kw) for r in reqs]
+
+
+def same_bits(want, got, what: str) -> None:
+    """Each result of ``got`` equals its result in ``want`` bit for bit."""
+    for a, b in zip(want, got, strict=True):
+        if not (np.array_equal(a.pids, b.pids) and np.array_equal(
+                np.asarray(a.scores).view(np.uint32),
+                np.asarray(b.scores).view(np.uint32))):
+            raise AssertionError(f"{what}: qid {b.qid} differs from its "
+                                 "cold answer")
+
+
+def reset_counts(retriever, counted: dict) -> None:
+    """Set the stage records and every launch count to 0."""
+    retriever.reset_stage_stats()
+    for fn in counted.values():
+        fn.launches = 0
+
+
+def read_counts(counted: dict) -> dict:
+    return {n: fn.launches for n, fn in counted.items()}
+
+
+def expect_launches(what: str, launches: dict, want: dict) -> None:
+    """The run launched exactly ``want`` (name → count; others 0)."""
+    got = {n: c for n, c in launches.items() if c}
+    if got != {n: c for n, c in want.items() if c}:
+        raise RuntimeError(f"{what}: launches {launches}, expected {want}")
+
+
+class ProbeCalls:
+    """Counts a searcher's probe (stages 1-2) and approximate-stage calls
+    while in use: a survivor hit makes neither."""
+
+    def __init__(self, searcher):
+        self.searcher, self.calls = searcher, 0
+
+    def _counted(self, fn):
+        def call(*a, **kw):
+            self.calls += 1
+            return fn(*a, **kw)
+        return call
+
+    def __enter__(self):
+        s = self.searcher
+        s.probe_batch = self._counted(s.probe_batch)
+        s.approx_select_batch = self._counted(s.approx_select_batch)
+        return self
+
+    def __exit__(self, *exc):
+        del self.searcher.probe_batch, self.searcher.approx_select_batch
+
+
+def hold_to_cpu(cpu, searchers: dict, held: list, s: Shapes) -> dict:
+    """Hold each (request, card result, pool) of ``held`` to the CPU
+    engine's answer ``REF_MARGIN`` places deeper; ``colbert`` through the
+    tie rule against that pool's searcher. → {tie route: count}."""
+    from repro_torch.testing import (REF_MARGIN, assert_colbert_match,
+                                     assert_topk_match)
+    deeper = [dataclasses.replace(r, ctx=None, k=r.k + REF_MARGIN)
+              for r, _, _ in held]
+    want = []
+    for lo in range(0, len(deeper), s.B):
+        want += cpu.process_batch(deeper[lo:lo + s.B])
+    routes = {}
+    for (req, res, pool), ref in zip(held, want, strict=True):
+        what = f"front door: qid {req.qid} {req.method} k={req.k}"
+        if req.method != "colbert":
+            assert_topk_match(ref.scores, ref.pids, res.scores, res.pids,
+                              what=what)
+            continue
+        route = assert_colbert_match(
+            cpu.retriever.searcher, searchers[pool], req.q_emb,
+            (ref.scores, ref.pids), (res.scores, res.pids), what=what)
+        if route:
+            routes[route] = routes.get(route, 0) + 1
+    return routes
+
+
+def door_exact(cached, counted, batch) -> tuple:
+    """A: a cold mixed batch, then the same batch again: every answer an
+    exact hit equal to the cold one bit for bit, with no launch and no
+    stage run."""
+    retriever = cached.retriever
+    reset_counts(retriever, counted)
+    t0 = time.perf_counter()
+    cold = cached.process_batch(fresh(batch))
+    cold_s = time.perf_counter() - t0
+    launches = read_counts(counted)
+    check_launches("front door cold batch", launches, DOOR_KERNELS)
+    if any(r.cache_hit for r in cold):
+        raise AssertionError("A: a hit in the cold batch")
+    reset_counts(retriever, counted)
+    t0 = time.perf_counter()
+    warm = cached.process_batch(fresh(batch))
+    hit_s = time.perf_counter() - t0
+    stages = retriever.pipeline_stats.snapshot()["stages"]
+    if not all(r.cache_hit for r in warm):
+        raise AssertionError("A: the repeated batch missed the exact cache")
+    same_bits(cold, warm, "A: exact hit")
+    expect_launches("A: exact hits", read_counts(counted), {})
+    if stages:
+        raise AssertionError(f"A: exact hits ran stages {list(stages)}")
+    if any(r.pids.flags.writeable or r.scores.flags.writeable for r in warm):
+        raise AssertionError("A: a hit's arrays are writeable")
+    return cold, {"requests": len(batch), "cold_s": cold_s, "hit_s": hit_s,
+                  "hits": len(warm), "launches_cold": launches,
+                  "launches_hit": 0}
+
+
+def door_stage1(cached, plain, counted, batch, rng) -> tuple:
+    """B: hybrid and rerank requests on the terms the cold batch's splade
+    requests scored, at another α or k: every row a stage-1 hit, no
+    SPLADE launch, one launch of each tail; equal to the engine without
+    caches bit for bit."""
+    retriever = cached.retriever
+    sp = [r for r in batch if r.method == "splade"]
+    reqs = ([dataclasses.replace(r, ctx=None, qid=r.qid + 1000,
+                                 method="hybrid",
+                                 alpha=float(rng.uniform(0.1, 0.9)))
+             for r in sp]
+            + [dataclasses.replace(r, ctx=None, qid=r.qid + 2000,
+                                   method="rerank", k=110 - r.k)
+               for r in sp])
+    reset_counts(retriever, counted)
+    got = cached.process_batch(fresh(reqs))
+    launches = read_counts(counted)
+    counters = retriever.pipeline_stats.snapshot()["counters"]
+    if any(r.cache_hit for r in got):
+        raise AssertionError("B: an exact hit")
+    if counters != {"cache_stage1_hits": len(reqs),
+                    "cache_stage1_misses": 0, "cache_exact_stores":
+                    len(reqs)}:
+        raise AssertionError(f"B: counters {counters}")
+    expect_launches("B: stage-1 hits", launches,
+                    {"fused_rerank": 1, "decompress_maxsim": 1})
+    same_bits(plain.process_batch(fresh(reqs)), got, "B: stage-1 hit")
+    return reqs, got, {"requests": len(reqs), "counters": counters,
+                       "launches": launches}
+
+
+def door_survivors(cached, plain, counted, batch) -> tuple:
+    """C: the cold batch's colbert requests at the other k: every row a
+    survivor hit (no probe or approximate stage, no codes read), one
+    fused_rerank launch; equal to the engine without caches bit for
+    bit."""
+    retriever = cached.retriever
+    reqs = [dataclasses.replace(r, ctx=None, k=110 - r.k)
+            for r in batch if r.method == "colbert"]
+    reset_counts(retriever, counted)
+    with ProbeCalls(retriever.searcher) as calls:
+        got = cached.process_batch(fresh(reqs))
+    snap = retriever.pipeline_stats.snapshot()
+    codes = snap["stages"]["host_gather:codes"]
+    launches = read_counts(counted)
+    if calls.calls or snap["counters"].get("cache_stage1_hits") != len(reqs):
+        raise AssertionError(f"C: probe calls {calls.calls}, counters "
+                             f"{snap['counters']}")
+    if codes["pages_touched"] or codes["tokens_read"]:
+        raise AssertionError(f"C: the codes gather read {codes}")
+    expect_launches("C: survivor hits", launches, {"fused_rerank": 1})
+    same_bits(plain.process_batch(fresh(reqs)), got, "C: survivor hit")
+    return reqs, got, {"requests": len(reqs), "probe_calls": calls.calls,
+                       "counters": snap["counters"],
+                       "codes_gather": {n: codes[n] for n in (
+                           "pages_touched", "tokens_read")},
+                       "launches": launches}
+
+
+def front_door(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
+               device) -> tuple:
+    """Phase 4c: checks A-H and the Zipf trace (see the module docstring)
+    on the phase-3 index, with the device stage 1 and the fused tail. →
+    (the phase's figures, the cold batch's launches)."""
+    from repro_torch.serving.context import CacheHierarchy
+    from repro_torch.serving.engine import ServeEngine
+
+    counted = counted_kernels()
+    retr = make_retriever(path, device)
+    plain = ServeEngine(retr, splade_backend="device")
+    caches = CacheHierarchy(exact_entries=256, stage1_entries=256)
+    cached = ServeEngine(retr, caches=caches)
+    out = {}
+    plain.process_batch(door_requests(rng, s, topics, 8, qid0=30_000))
+
+    batch = door_requests(rng, s, topics, s.B, qid0=31_000)
+    cold, out["A"] = door_exact(cached, counted, batch)
+    held = [(r, res, "mmap") for r, res in zip(batch, cold)]
+    log(f"front door A: {s.B} exact hits equal their cold answers bit for "
+        f"bit, no launch, no stage; cold {out['A']['cold_s']:.3f} s, hits "
+        f"{out['A']['hit_s'] * 1e3:.3f} ms")
+
+    reqs, got, out["B"] = door_stage1(cached, plain, counted, batch, rng)
+    held += [(r, res, "mmap") for r, res in zip(reqs, got)]
+    log(f"front door B: {len(reqs)} stage-1 hits equal the engine without "
+        f"caches bit for bit; launches {out['B']['launches']}")
+
+    reqs, got, out["C"] = door_survivors(cached, plain, counted, batch)
+    held += [(r, res, "mmap") for r, res in zip(reqs, got)]
+    resident = make_retriever(path, device, resident=True)
+    r_cached = ServeEngine(resident, caches=CacheHierarchy(256, 256))
+    r_cached.process_batch(fresh([r for r in batch
+                                  if r.method == "colbert"]))
+    _, r_got, out["C_resident"] = door_survivors(
+        r_cached, ServeEngine(resident), counted, batch)
+    same_bits(got, r_got, "C: resident survivor hit vs mmap")
+    log(f"front door C: {len(reqs)} colbert survivor hits at the other k, "
+        "mmap and resident, no probe, no codes read, one fused_rerank "
+        "launch each; equal to the engine without caches and resident == "
+        "mmap bit for bit")
+
+    new = door_requests(rng, s, topics, s.B // 2, qid0=32_000)
+    mixed = [x for pair in zip(batch[:s.B // 2], new) for x in pair]
+    reset_counts(retr, counted)
+    got = cached.process_batch(fresh(mixed))
+    if [r.cache_hit for r in got] != [True, False] * (s.B // 2):
+        raise AssertionError("D: hits are not the cached half")
+    same_bits(plain.process_batch(fresh(mixed)), got, "D: partial hits")
+    held += [(r, res, "mmap") for r, res in zip(mixed[1::2], got[1::2])]
+    out["D"] = {"requests": len(mixed), "hits": s.B // 2,
+                "launches": read_counts(counted)}
+    log(f"front door D: a batch of {len(mixed)} with {s.B // 2} exact hits "
+        "equals the engine without caches bit for bit")
+
+    sizes = (len(caches.exact), len(caches.stage1))
+    before = (caches.exact.invalidations, caches.stage1.invalidations)
+    gen = retr.bump_index_generation()
+    purged = (caches.exact.invalidations - before[0],
+              caches.stage1.invalidations - before[1])
+    if purged != sizes or len(caches.exact) or len(caches.stage1):
+        raise AssertionError(f"E: purged {purged} of {sizes}")
+    reset_counts(retr, counted)
+    again = cached.process_batch(fresh(batch))
+    counters = retr.pipeline_stats.snapshot()["counters"]
+    if any(r.cache_hit for r in again) or counters.get("cache_stage1_hits"):
+        raise AssertionError(f"E: a hit after the bump: {counters}")
+    same_bits(cold, again, "E: after the generation bump")
+    out["E"] = {"generation": gen, "purged": purged,
+                "launches": read_counts(counted)}
+    log(f"front door E: generation {gen} purged {purged} entries (exact, "
+        "stage 1); the batch misses everything and gives the same bits")
+
+    as_splade, f_res, out["F"], out["G"] = door_admission(
+        cached, plain, rng, s, topics)
+    held += [(r, res, "mmap") for r, res in zip(as_splade, f_res)]
+    log(f"front door F: at an SLO of {out['F']['slo_ms']:.3f} ms (stage 1 "
+        f"{out['F']['stage1_ms']:.3f} ms, tail {out['F']['tail_ms']:.3f} "
+        f"ms) {len(f_res)} hybrid/rerank requests came back degraded "
+        "(slo_tail), equal to the splade plan bit for bit and not stored; "
+        "G: the request past its deadline was shed before it was queued")
+
+    out["H"] = door_batch_cap(plain, rng, s, topics)
+    log(f"front door H: batch_cap {out['H']}")
+
+    out["trace"], t_held = door_trace(retr, plain, counted, rng, s, topics)
+    held += t_held
+    searchers = {"mmap": retr.searcher, "resident": resident.searcher}
+    cpu = ServeEngine(make_retriever(path, "cpu"))
+    out["tie_routes"] = hold_to_cpu(cpu, searchers, held, s)
+    log(f"front door: {len(held)} distinct answers match the CPU engine; "
+        f"through a tie at a stage boundary: {out['tie_routes'] or 'none'}")
+    return out, out["A"]["launches_cold"]
+
+
+def door_admission(cached, plain, rng, s: Shapes, topics) -> tuple:
+    """F: through ``RetrievalServer`` admission at an SLO between the
+    predicted cheap and full costs (from the stage EWMAs of a warm batch)
+    degrades hybrid/rerank requests, one at a time (the queue empty at
+    each decision), to the splade plan: its bits, flagged ``slo_tail``,
+    never stored. G: a request with ``deadline_ms=0.001`` is shed before
+    it is queued. → (the requests as splade requests, their results, F's
+    figures, G's figures)."""
+    from repro_torch.serving.admission import (AdmissionController,
+                                               RequestShed)
+    from repro_torch.serving.server import RetrievalServer
+    retr, caches = cached.retriever, cached.caches
+    retr.reset_stage_stats()
+    plain.process_batch(door_requests(rng, s, topics, s.B,
+                                      ("hybrid", "rerank", "splade"),
+                                      qid0=33_000))
+    stage1_ms, tail_ms, _ = AdmissionController.stage_costs(
+        retr.pipeline_stats.snapshot()["stages"])
+    # the splade plan's own dispatches move the stage-1 EWMA, by less
+    # than half the tail when the tail is over twice stage 1
+    if not tail_ms > 2 * stage1_ms:
+        raise RuntimeError(f"F: tail {tail_ms} ms is not over twice stage "
+                           f"1's {stage1_ms} ms")
+    slo = stage1_ms + tail_ms / 2
+    f_reqs = door_requests(rng, s, topics, 8, ("hybrid", "rerank"),
+                           qid0=34_000)
+    g_req = door_requests(rng, s, topics, 1, ("hybrid",), qid0=35_000)[0]
+    g_req.deadline_ms = 0.001
+    n_exact = len(caches.exact)
+    srv = RetrievalServer(cached, max_batch=s.B, batch_timeout_ms=5.0,
+                          admission=AdmissionController(slo))
+    srv.start()
+    try:
+        f_res = [srv.submit(r).result(timeout=600) for r in f_reqs]
+        depth = srv.queue.qsize()
+        try:
+            srv.submit(g_req).result(timeout=60)
+        except RequestShed as e:
+            shed = e.reason
+        else:
+            raise AssertionError("G: the request past its deadline was "
+                                 "served")
+        health = srv.health()
+    finally:
+        srv.stop()
+    if any((r.degraded, r.degrade_reason) != (True, "slo_tail")
+           for r in f_res):
+        raise AssertionError("F: " + str([(r.degraded, r.degrade_reason)
+                                          for r in f_res]))
+    if len(caches.exact) != n_exact or any(
+            caches.exact.get(r.ctx.cache_key, count_miss=False) is not None
+            for r in f_reqs):
+        raise AssertionError("F: a degraded answer was stored")
+    as_splade = fresh(f_reqs, method="splade")
+    same_bits(plain.process_batch(as_splade), f_res, "F: degraded answer")
+    if (shed, health["sheds"], health["queue_depth"]) != ("deadline", 1,
+                                                         depth):
+        raise AssertionError(f"G: shed {shed}, health {health}")
+    return as_splade, f_res, {
+        "slo_ms": slo, "stage1_ms": stage1_ms, "tail_ms": tail_ms,
+        "degraded": len(f_res), "admission": health["admission"]}, {
+        "shed_reason": shed, "sheds": health["sheds"],
+        "queue_depth": health["queue_depth"]}
+
+
+def door_batch_cap(engine, rng, s: Shapes, topics) -> dict:
+    """H: an SLO below one request's service time halves the batch cap to
+    1; a slack one grows it back to ``max_batch`` after
+    ``grow_patience`` batches that fill the cap. Requests are queued
+    before the workers start, so that every batch fills."""
+    from repro_torch.serving.server import RetrievalServer
+    reqs = door_requests(rng, s, topics, 6 * s.B, ("splade",), qid0=36_000)
+    one_ms = min(engine.process(r).service_time for r in reqs[:3]) * 1e3
+    srv = RetrievalServer(engine, max_batch=s.B, batch_timeout_ms=5.0,
+                          latency_slo_ms=one_ms / 4)
+    out = {"slo_tight_ms": one_ms / 4}
+    for label, part, slo in (("tight", reqs[:2 * s.B], one_ms / 4),
+                             ("slack", reqs[2 * s.B:], 1e6)):
+        srv.latency_slo_ms = slo
+        futs = [srv.submit(r) for r in part]
+        b0 = srv.batches
+        srv.start()
+        try:
+            for f in futs:
+                f.result(timeout=600)
+        finally:
+            srv.stop()
+        out[label] = {"requests": len(part), "batches": srv.batches - b0,
+                      "batch_cap": srv.batch_cap,
+                      "ewma_latency_ms": srv.ewma_latency_ms}
+    if out["tight"]["batch_cap"] != 1 or out["slack"]["batch_cap"] != s.B:
+        raise AssertionError(f"H: {out}")
+    return out
+
+
+def door_trace(retr, plain, counted, rng, s: Shapes, topics,
+               n_queries: int = 16, n: int = 256, zipf_s: float = 1.1):
+    """The trace: ``n`` requests drawn with Zipf(``zipf_s``) over
+    ``4 * n_queries`` distinct requests (each query asked by the four
+    methods), served at max_batch=B in waves of B (a wave is submitted
+    when the last one is answered), caches off and on in turns, twice
+    each. Every repeat equals the distinct request's first answer of
+    the first run bit for bit. → (figures, that run's distinct answers
+    for the CPU check)."""
+    from repro_torch.serving.context import CacheHierarchy
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.server import RetrievalServer
+
+    distinct = []
+    for q in door_requests(rng, s, topics, n_queries, ("splade",),
+                           qid0=40_000):
+        for m in DOOR_METHODS:
+            alpha = (float(rng.uniform(0.1, 0.9)) if rng.random() < 0.25
+                     else None)
+            distinct.append(dataclasses.replace(
+                q, method=m, qid=len(distinct), k=int(rng.choice([10, 100])),
+                alpha=alpha))
+    weight = np.arange(1, len(distinct) + 1, dtype=np.float64) ** -zipf_s
+    weight = weight[rng.permutation(len(distinct))]
+    order = rng.choice(len(distinct), size=n, p=weight / weight.sum())
+
+    runs, first = [], {}
+    for label in ("off", "on", "on", "off"):
+        caches = CacheHierarchy(256, 256) if label == "on" else None
+        retr.attach_caches(None)
+        engine = plain if caches is None else ServeEngine(retr,
+                                                          caches=caches)
+        reset_counts(retr, counted)
+        srv = RetrievalServer(engine, max_batch=s.B, batch_timeout_ms=5.0)
+        srv.start()
+        results, at_submit = [], []
+        t0 = time.perf_counter()
+        try:
+            for lo in range(0, n, s.B):
+                futs = []
+                for j in order[lo:lo + s.B]:
+                    futs.append(srv.submit(dataclasses.replace(
+                        distinct[j], ctx=None)))
+                    at_submit.append(futs[-1].done())
+                results += [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+            health = srv.health()
+        finally:
+            srv.stop()
+        for j, res in zip(order, results):
+            if j not in first:
+                first[j] = res
+            else:
+                same_bits([first[j]], [res], f"trace ({label}): a repeat")
+        lat = np.array([r.latency for r in results]) * 1e3
+        sub = lat[np.array(at_submit)]
+        c = health["counters"]
+        s1 = c.get("cache_stage1_hits", 0) + c.get("cache_stage1_misses", 0)
+        runs.append({
+            "caches": label, "requests": n, "qps": n / wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p95_ms": float(np.percentile(lat, 95)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "exact_hits": int(sum(r.cache_hit for r in results)),
+            "exact_hit_share": sum(r.cache_hit for r in results) / n,
+            "submit_hits": int(len(sub)),
+            "submit_hit_p50_ms": (float(np.percentile(sub, 50))
+                                  if len(sub) else None),
+            "stage1_lookups": s1,
+            "stage1_hit_share": (c.get("cache_stage1_hits", 0) / s1
+                                 if s1 else None),
+            "batches": health["batches"], "counters": c,
+            "stage_wall_s": {m: r["wall_s"]
+                             for m, r in health["stages"].items()},
+            "launches": read_counts(counted)})
+        log(f"front door trace, caches {label}: {runs[-1]}")
+    retr.attach_caches(None)
+    held = [(distinct[j], first[j], "mmap") for j in sorted(first)]
+    return {"distinct": len(distinct), "drawn": len(first),
+            "zipf_s": zipf_s, "wave": s.B, "runs": runs}, held
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing
 # ---------------------------------------------------------------------------
 
@@ -1317,16 +1815,20 @@ SOURCES = {
 }
 
 
-def kernel_entries(served: dict, colbert: dict, times: dict, ctimes: dict,
-                   err: dict, s: Shapes) -> list:
+def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
+                   ctimes: dict, err: dict, s: Shapes) -> list:
     """The ``{"kernels": [...]}`` line's entries: one per main path and
     kernel, with that path's launches from its own run (counts set to 0
     just before it, read just after) and the kernel timed at that path's
     shape: the SPLADE methods served with the device stage 1 (C =
     first_k; every kernel, those off this path at 0 launches), and each
-    colbert run's tail kernel on real survivors (C = ndocs)."""
+    colbert run's tail kernel on real survivors (C = ndocs); the front
+    door's cold mixed batch with the kernels of its path, timed at the
+    serve shape."""
     paths = [("serve_device", served["device"][0]["launches"], kname,
               times[kname]["batch"], err[kname], s.C) for kname in SOURCES]
+    paths += [("front_door", door, kname, times[kname]["batch"], err[kname],
+               s.C) for kname in DOOR_KERNELS]
     paths += [(label, colbert[label]["launches"], kname, ctimes[t_key],
                ctimes[t_key]["max_abs_err"], s.ndocs)
               for label, kname, t_key in (
@@ -1404,6 +1906,10 @@ def main(argv=None) -> int:
             sub_rng(args.seed, "colbert"), s, path, device)
         log(f"phase 4 colbert: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+        door, door_launches = front_door(sub_rng(args.seed, "front door"),
+                                         s, path, topics, device)
+        log(f"phase 4c front door: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         times = time_kernels(rng, s, device, peaks, path, topics, args.seed)
         ctimes = time_colbert(sub_rng(args.seed, "colbert timing"), s,
                               device, peaks, path)
@@ -1430,7 +1936,8 @@ def main(argv=None) -> int:
                 "shapes": dataclasses.asdict(s) if at == "batch"
                 else dict(dataclasses.asdict(s), B=1),
                 "card": name, "power_limit": limit}), flush=True)
-    kernels = kernel_entries(served, colbert, times, ctimes, err, s)
+    kernels = kernel_entries(served, colbert, door_launches, times, ctimes,
+                             err, s)
     print(json.dumps({"phase": "stage1_breakdown", **times["stage1"],
                       "card": name, "power_limit": limit}), flush=True)
     for backend, lines in served.items():
@@ -1442,6 +1949,8 @@ def main(argv=None) -> int:
                       "candidates": colbert_counts, "card": name,
                       "power_limit": limit}), flush=True)
     print(json.dumps({"phase": "colbert_timing", **ctimes, "card": name,
+                      "power_limit": limit}), flush=True)
+    print(json.dumps({"phase": "front_door", **door, "card": name,
                       "power_limit": limit}), flush=True)
     log(f"chip_smoke wall, build included: "
         f"{time.perf_counter() - t_all:.1f} s")

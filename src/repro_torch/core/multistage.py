@@ -15,6 +15,10 @@ generates and approximately scores IVF candidates on the device. The
 gathers run on the host from the memory-mapped pool (on the device for
 a resident pool); the exact tail runs on the searcher's device through
 the CUDA kernels.
+
+With a cache hierarchy attached (:meth:`MultiStageRetriever.attach_caches`)
+the SPLADE stage 1 reads and fills per-query candidate rows, and
+``colbert`` skips stages 1-3 when every query's survivors are cached.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from repro_torch.core.plaid import (PLAIDSearcher, pad_query_batch_host,
                                     pad_topk_host, topk_host)
 from repro_torch.index.splade_device import SpladeDeviceCache
 from repro_torch.index.splade_index import SpladeIndex
+from repro_torch.serving.context import freeze
 from repro_torch.serving.pipeline import (
     DEVICE,
     HOST,
@@ -87,6 +92,10 @@ class MultiStageRetriever:
         self._lock = threading.Lock()
         self._plans: dict = {}
         self.pipeline_stats = PipelineStats()
+        # the cache hierarchy the engine attaches, and the index
+        # generation its entries are scoped to
+        self._caches = None
+        self.index_generation = 0
         self.set_splade_backend(params.splade_backend)
         self.set_rerank_backend(params.rerank_backend)
         if params.splade_backend != "host":
@@ -125,6 +134,62 @@ class MultiStageRetriever:
         self.pipeline_stats.reset()
 
     # ------------------------------------------------------------------
+    # coordinator cache hierarchy + index-generation invalidation
+    # ------------------------------------------------------------------
+    def attach_caches(self, caches):
+        """Attach a :class:`~repro_torch.serving.context.CacheHierarchy`
+        (or detach with ``None``). Plans read ``self._caches`` per call,
+        so caches can be attached after plans are compiled."""
+        self._caches = caches
+
+    def bump_index_generation(self):
+        """Advance the index generation (the index changed) and purge
+        every cache entry computed under an older one. New cache keys
+        embed the new generation, so a stale entry is never served even
+        before the purge completes."""
+        self.index_generation = self.index_generation + 1
+        caches = self._caches
+        if caches is not None:
+            caches.purge_stale(self.index_generation)
+        return self.index_generation
+
+    def _plaid_salt(self) -> str:
+        sp = self.searcher.params
+        return f"np{sp.nprobe}|cc{sp.candidate_cap}|nd{sp.ndocs}"
+
+    def cache_salts(self, method: str):
+        """(exact_salt, stage1_salt): the retriever-config components of
+        the cache keys. Everything that changes an answer for identical
+        query bytes appears here: backends, first_k, normalizer, PLAID
+        knobs and the index generation. The strings are the JAX
+        package's, except that the stage-1 backend token reads this
+        package's names (``bhost``/``bdevice``, ``sbhost``/``sbdevice``;
+        the JAX package's device stage 1 reads ``pallas``). The fused
+        and split tails give the same bits, and keep separate salts as
+        in the JAX package."""
+        p = self.params
+        gen = self.index_generation
+        if method == "colbert":
+            s1 = f"cand|{self._plaid_salt()}|g{gen}"
+        else:
+            s1 = f"sp|fk{p.first_k}|b{self.splade_backend}|g{gen}"
+        exact = (f"fk{p.first_k}|n{p.normalizer}|sb{self.splade_backend}"
+                 f"|rb{self.rerank_backend}|{self._plaid_salt()}|g{gen}")
+        return exact, s1
+
+    def _stage1_ctx_keys(self, cb: CandidateBatch):
+        """Per-query stage-1 cache keys for a batch, or None when the
+        stage-1 cache is off or the batch carries no contexts."""
+        caches = self._caches
+        if (caches is None or caches.stage1.capacity <= 0
+                or cb.ctxs is None):
+            return None
+        keys = [None if c is None else c.stage1_key for c in cb.ctxs]
+        if all(k is None for k in keys):
+            return None
+        return keys
+
+    # ------------------------------------------------------------------
     def run_splade_batch(self, term_ids, term_weights,
                          k: Optional[int] = None,
                          backend: Optional[str] = None):
@@ -156,9 +221,11 @@ class MultiStageRetriever:
     # ------------------------------------------------------------------
     def build_batch(self, method: str, q_embs=None, term_ids=None,
                     term_weights=None, alphas=None, k: Optional[int] = None,
-                    n: Optional[int] = None) -> CandidateBatch:
+                    n: Optional[int] = None, ctxs=None) -> CandidateBatch:
         """Package per-query inputs into the immutable carrier a
-        :class:`StagePlan` consumes."""
+        :class:`StagePlan` consumes. ``ctxs`` (optional per-query
+        :class:`~repro_torch.serving.context.RequestContext`) rides
+        along so plan stages can consult per-request cache keys."""
         k = self.params.k if k is None else k
         if n is None:
             n = len(q_embs) if q_embs is not None else len(term_ids)
@@ -166,7 +233,7 @@ class MultiStageRetriever:
         return CandidateBatch(method=method, k=k, q_embs=pick(q_embs),
                               term_ids=pick(term_ids),
                               term_weights=pick(term_weights),
-                              alphas=alphas)
+                              alphas=alphas, ctxs=pick(ctxs))
 
     def compile_plan(self, method: str) -> StagePlan:
         """The method's typed stage graph, cached per (method, stage-1
@@ -194,11 +261,35 @@ class MultiStageRetriever:
         s1_kind = HOST if backend == "host" else DEVICE
 
         def splade_stage(cb):
-            # both backends return host arrays
-            pids_b, s_scores = self.run_splade_batch(
-                list(cb.term_ids), list(cb.term_weights), p.first_k,
-                backend=backend)
-            return cb.with_state(pids_b=pids_b, s_scores=s_scores)
+            # both backends return host arrays. Stage-1 cache: a row's
+            # bits do not depend on the batch it is scored in, so hits
+            # and misses mix freely; only the missed rows are
+            # dispatched, then put back in place
+            keys = self._stage1_ctx_keys(cb)
+            if keys is None:
+                pids_b, s_scores = self.run_splade_batch(
+                    list(cb.term_ids), list(cb.term_weights), p.first_k,
+                    backend=backend)
+                return cb.with_state(pids_b=pids_b, s_scores=s_scores)
+            cache = self._caches.stage1
+            rows = [None if k_ is None else cache.get(k_) for k_ in keys]
+            miss = [i for i, r in enumerate(rows) if r is None]
+            self.pipeline_stats.counter("cache_stage1_hits",
+                                        len(rows) - len(miss))
+            self.pipeline_stats.counter("cache_stage1_misses", len(miss))
+            if miss:
+                pids_m, scores_m = self.run_splade_batch(
+                    [cb.term_ids[i] for i in miss],
+                    [cb.term_weights[i] for i in miss], p.first_k,
+                    backend=backend)
+                gen = self.index_generation
+                for j, i in enumerate(miss):
+                    rows[i] = (pids_m[j], scores_m[j])
+                    if keys[i] is not None:
+                        cache.put(keys[i], freeze(pids_m[j], scores_m[j]),
+                                  gen)
+            return cb.with_state(pids_b=np.stack([r[0] for r in rows]),
+                                 s_scores=np.stack([r[1] for r in rows]))
 
         if method == "splade":
             def fuse_splade(cb):
@@ -224,6 +315,27 @@ class MultiStageRetriever:
         # approximate scores → the ndocs survivors' residual gather; its
         # exact tail is the rerank tail on the survivors (``pids_b``)
         def probe(cb):
+            # survivor-cache probe: when EVERY query's survivors are
+            # cached, stages 1-3 are skipped and the state the tail
+            # reads is rebuilt as the cold path makes it (the query
+            # padding and copy of ``probe_batch``; the survivors on the
+            # host and, for a resident pool, on the device)
+            keys = self._stage1_ctx_keys(cb)
+            if keys is not None:
+                rows = [None if k_ is None else self._caches.stage1.get(k_)
+                        for k_ in keys]
+                if all(r is not None for r in rows):
+                    self.pipeline_stats.counter("cache_stage1_hits",
+                                                len(rows))
+                    q, q_valid = searcher.to_device(
+                        *pad_query_batch_host(cb.q_embs))
+                    pids_b = np.stack([r[0] for r in rows])
+                    final = searcher.to_device(pids_b)[0] if dr else None
+                    return cb.with_state(q=q, q_valid=q_valid,
+                                         pids_b=pids_b, final=final,
+                                         stage1_cached=True)
+                self.pipeline_stats.counter(
+                    "cache_stage1_misses", sum(r is None for r in rows))
             st = searcher.probe_batch(cb.q_embs)
             # the host gather reads host candidates: copy them here
             cand = st["cand"] if dr else st["cand"].cpu().numpy()
@@ -232,16 +344,31 @@ class MultiStageRetriever:
                                  cand_g=cand)
 
         def gather_codes(cb):
+            if cb.state.get("stage1_cached"):
+                return cb
             codes, valid = searcher.gather_codes_batch(cb.state["cand_g"])
             return cb.with_state(c_codes=codes, c_valid=valid)
 
         def approx(cb):
             s = cb.state
+            if s.get("stage1_cached"):
+                return cb
             codes, valid = searcher.to_device(s["c_codes"], s["c_valid"])
             final = searcher.approx_select_batch(
                 s["scores_c"], codes, valid, s["q_valid"], s["cand"])
-            return cb.with_state(final=final,
-                                 pids_b=final.cpu().numpy().astype(np.int64))
+            pids_b = final.cpu().numpy().astype(np.int64)
+            keys = self._stage1_ctx_keys(cb)
+            if keys is not None:
+                # each row with its count of real candidates after the
+                # cap, as the JAX package's entries hold
+                n_real = (s["cand"] >= 0).sum(dim=1).tolist()
+                gen = self.index_generation
+                for i, key in enumerate(keys):
+                    if key is not None:
+                        self._caches.stage1.put(
+                            key, (freeze(pids_b[i])[0], int(n_real[i])),
+                            gen)
+            return cb.with_state(final=final, pids_b=pids_b)
 
         def gather_survivors(cb):
             s = cb.state
@@ -327,7 +454,8 @@ class MultiStageRetriever:
 
     # ------------------------------------------------------------------
     def search_batch(self, method, q_embs=None, term_ids=None,
-                     term_weights=None, alpha=None, k: Optional[int] = None):
+                     term_weights=None, alpha=None, k: Optional[int] = None,
+                     ctxs=None):
         """Cross-query batched retrieval.
 
         ``method``: one method name for the whole batch, or a sequence of
@@ -338,7 +466,10 @@ class MultiStageRetriever:
         (pids (B, k), scores (B, k)); ``colbert`` pads past min(k,
         ndocs) with (-1, -inf), and a ``rerank``, ``hybrid`` or
         ``splade`` group returns min(k, first_k) columns, padded the same
-        way in a mixed batch."""
+        way in a mixed batch. ``ctxs``: optional per-query
+        :class:`~repro_torch.serving.context.RequestContext` sequence;
+        with caches attached, the plans consult each context's
+        ``stage1_key``."""
         p = self.params
         k = p.k if k is None else k
         n = len(q_embs) if q_embs is not None else len(term_ids)
@@ -346,11 +477,11 @@ class MultiStageRetriever:
             methods = list(method)
             if len(set(methods)) > 1:
                 return self._search_batch_mixed(methods, q_embs, term_ids,
-                                                term_weights, alpha, k)
+                                                term_weights, alpha, k, ctxs)
             method = methods[0]
         alphas = self._alpha_array(alpha, n)
         cb = self.build_batch(method, q_embs, term_ids, term_weights,
-                              alphas, k, n)
+                              alphas, k, n, ctxs=ctxs)
         cb = self.compile_plan(method).run(cb, stats=self.pipeline_stats)
         return cb.pids, cb.scores
 
@@ -372,7 +503,7 @@ class MultiStageRetriever:
         out_scores[idx, :w] = scores
 
     def _search_batch_mixed(self, methods, q_embs, term_ids, term_weights,
-                            alpha, k: int):
+                            alpha, k: int, ctxs=None):
         """Group a mixed-method batch by method, run each group batched,
         and scatter results back into request order."""
         n = len(methods)
@@ -385,6 +516,7 @@ class MultiStageRetriever:
                     else [seq[i] for i in idx])
             pids, scores = self.search_batch(
                 m, q_embs=pick(q_embs), term_ids=pick(term_ids),
-                term_weights=pick(term_weights), alpha=alphas[idx], k=k)
+                term_weights=pick(term_weights), alpha=alphas[idx], k=k,
+                ctxs=pick(ctxs))
             self.scatter_group(out_pids, out_scores, idx, pids, scores)
         return out_pids, out_scores

@@ -91,8 +91,23 @@ def pad_topk_host(pids: np.ndarray, scores: np.ndarray, k: int):
 
 def check_ieee_fp32():
     """Raise unless float32 matmuls run in IEEE fp32. TF32 would move
-    probe scores by ~1e-3 and change which centroids are probed."""
-    if (torch.backends.cuda.matmul.allow_tf32
+    probe scores by ~1e-3 and change which centroids are probed.
+
+    Where torch has ``torch.backends.cuda.matmul.fp32_precision`` that
+    setting is read first (the legacy setters update it too, and reading
+    the legacy flags after the new API was used raises): it must be
+    ``"ieee"``, or ``"none"`` with the legacy flags off. Older torch has
+    only the legacy flags."""
+    matmul = torch.backends.cuda.matmul
+    precision = getattr(matmul, "fp32_precision", None)
+    if precision == "ieee":
+        return
+    if precision not in (None, "none"):
+        raise RuntimeError(
+            "the centroid probe needs IEEE fp32 matmuls, but TF32 is "
+            "allowed (torch.backends.cuda.matmul.fp32_precision="
+            f"{precision!r}); set it to 'ieee'")
+    if (matmul.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
         raise RuntimeError(
             "the centroid probe needs IEEE fp32 matmuls, but TF32 is "

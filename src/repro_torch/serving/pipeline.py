@@ -5,7 +5,8 @@ Each method compiles to a :class:`StagePlan` — an ordered tuple of typed
 tail and its sync) that pass an immutable :class:`CandidateBatch`
 carrier. :class:`PipelineStats` is the per-stage instrumentation record:
 wall time, dispatches, queries, mmap pages and tokens touched (folded in
-from ``AccessStats``) and the host/device overlap fraction.
+from ``AccessStats``), the host/device overlap fraction, and named
+counters (cache hits and misses, admission outcomes).
 
 This module is a leaf: it imports nothing from ``repro_torch.core``.
 """
@@ -51,6 +52,7 @@ class CandidateBatch:
     term_ids: Optional[tuple] = None        # per-query (Qt_i,) arrays
     term_weights: Optional[tuple] = None
     alphas: Optional[np.ndarray] = None     # (B,) hybrid interpolation
+    ctxs: Optional[tuple] = None            # per-query RequestContext
     state: Mapping[str, Any] = _EMPTY_STATE
     pids: Optional[np.ndarray] = None       # (B, k) final, -1 padded
     scores: Optional[np.ndarray] = None     # (B, k) final, desc
@@ -215,10 +217,12 @@ class PipelineStats:
         self._t_mark: Optional[float] = None
         self._busy_any_s = 0.0
         self._overlap_s = 0.0
+        self._counters: dict[str, int] = {}
 
     def reset(self):
         with self._lock:
             self._stages.clear()
+            self._counters.clear()
             self._busy = 0
             self._async = 0
             self._t_mark = None
@@ -277,11 +281,20 @@ class PipelineStats:
                            else EWMA_ALPHA * ms
                            + (1 - EWMA_ALPHA) * rec.ewma_ms)
 
+    def counter(self, name: str, delta: int = 1):
+        """Bump a named monotonic counter (cache hits and misses,
+        admission outcomes); surfaced in :meth:`snapshot` under
+        ``"counters"``."""
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0) + delta
+
     def snapshot(self) -> dict:
         """Atomic copy: {"stages": {name: record-dict}, "busy_s": ...,
-        "overlap_s": ..., "overlap_fraction": ...}."""
+        "overlap_s": ..., "overlap_fraction": ..., "counters": ...}."""
         with self._lock:
             stages = {n: r.as_dict() for n, r in self._stages.items()}
             busy, over = self._busy_any_s, self._overlap_s
+            counters = dict(self._counters)
         return {"stages": stages, "busy_s": busy, "overlap_s": over,
-                "overlap_fraction": over / busy if busy > 0 else 0.0}
+                "overlap_fraction": over / busy if busy > 0 else 0.0,
+                "counters": counters}

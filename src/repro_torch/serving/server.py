@@ -8,6 +8,14 @@ request keeps collecting queued requests for up to
 ``batch_timeout_ms`` (or until ``max_batch``) and serves the group
 through ``ServeEngine.process_batch`` — one batched kernel launch per
 method group and deduplicated mmap gathers across co-batched queries.
+With ``latency_slo_ms`` set, the effective batch cap adapts: an EWMA of
+batch service time shrinks it under SLO pressure and grows it back when
+there is headroom.
+
+Front door: ``submit`` answers an exact-cache hit at once, without the
+queue; an :class:`~repro_torch.serving.admission.AdmissionController`
+then admits the request at full quality, degrades it to the splade-only
+plan, or sheds it before it is queued.
 
 Fault tolerance: ``drain()`` completes queued work; a failing batch is
 retried request by request so one poisoned query cannot fail its
@@ -21,18 +29,45 @@ import queue
 import threading
 import time
 from concurrent.futures import Future
+from typing import Optional
 
+from repro_torch.serving.admission import AdmissionController, RequestShed
+from repro_torch.serving.context import ADMIT_DEGRADED, ADMIT_SHED
 from repro_torch.serving.engine import Request, ServeEngine
 
 
 class RetrievalServer:
     def __init__(self, engine: ServeEngine, n_threads: int = 1,
                  max_queue: int = 4096, max_batch: int = 1,
-                 batch_timeout_ms: float = 2.0):
+                 batch_timeout_ms: float = 2.0,
+                 latency_slo_ms: Optional[float] = None,
+                 slo_ewma_alpha: float = 0.25, grow_patience: int = 3,
+                 admission: Optional[AdmissionController] = None):
+        """``latency_slo_ms`` switches on adaptive micro-batch sizing:
+        the effective batch cap halves (floor 1) when the EWMA of batch
+        service time exceeds the SLO, and doubles back (ceiling
+        ``max_batch``) after ``grow_patience`` consecutive observations
+        under ~70 % of the SLO from batches that *fill* the current cap
+        — growth needs evidence at the current operating point, or the
+        cap hunts between sizes. ``None`` keeps the cap fixed.
+
+        ``admission``: optional :class:`AdmissionController`. Each
+        ``submit`` is classified against the live per-stage EWMAs: full
+        quality, degraded to the splade-only plan, or shed (the future
+        fails with :class:`RequestShed` before the request enters the
+        queue)."""
         self.engine = engine
+        self.admission = admission
+        self.sheds = 0
         self.n_threads = n_threads
         self.max_batch = max(1, max_batch)
         self.batch_timeout_ms = batch_timeout_ms
+        self.latency_slo_ms = latency_slo_ms
+        self.slo_ewma_alpha = slo_ewma_alpha
+        self.grow_patience = max(1, grow_patience)
+        self.ewma_latency_ms: Optional[float] = None
+        self.batch_cap = self.max_batch      # effective (adaptive) cap
+        self._grow_streak = 0
         self.queue: queue.Queue = queue.Queue(maxsize=max_queue)
         self.workers: list[threading.Thread] = []
         self.running = False
@@ -50,11 +85,15 @@ class RetrievalServer:
             self.workers.append(t)
 
     def _collect_batch(self, first):
-        """Coalesce queued requests behind ``first`` until ``max_batch``
-        or ``batch_timeout_ms`` elapses."""
+        """Coalesce queued requests behind ``first`` until the current
+        (possibly adapted) batch cap or ``batch_timeout_ms`` elapses."""
         batch = [first]
+        # one locked read: _observe_latency resizes the cap under the
+        # lock from whichever thread served the last batch
+        with self._lock:
+            cap = self.batch_cap
         deadline = time.perf_counter() + self.batch_timeout_ms / 1e3
-        while len(batch) < self.max_batch:
+        while len(batch) < cap:
             remaining = deadline - time.perf_counter()
             if remaining <= 0:
                 break
@@ -63,6 +102,39 @@ class RetrievalServer:
             except queue.Empty:
                 break
         return batch
+
+    def _observe_latency(self, results):
+        """Adaptive micro-batch sizing: feed the served group's service
+        time into an EWMA and resize the effective cap against
+        ``latency_slo_ms`` (shrink fast, grow cautiously).
+
+        Service time, not client-observed latency, on purpose: queueing
+        delay rises exactly when the server is saturated, i.e. when
+        larger batches are needed; feeding it back into the shrink
+        decision would pin the cap at 1 under overload."""
+        if self.latency_slo_ms is None or not results:
+            return
+        obs_ms = max(r.service_time for r in results) * 1e3
+        with self._lock:
+            a = self.slo_ewma_alpha
+            self.ewma_latency_ms = (obs_ms if self.ewma_latency_ms is None
+                                    else a * obs_ms
+                                    + (1 - a) * self.ewma_latency_ms)
+            if self.ewma_latency_ms > self.latency_slo_ms:
+                self.batch_cap = max(1, self.batch_cap // 2)
+                self._grow_streak = 0
+            elif (self.ewma_latency_ms < 0.7 * self.latency_slo_ms
+                  and len(results) >= self.batch_cap
+                  and self.batch_cap < self.max_batch):
+                self._grow_streak += 1
+                if self._grow_streak >= self.grow_patience:
+                    self.batch_cap = min(self.max_batch,
+                                         self.batch_cap * 2)
+                    self._grow_streak = 0
+            else:
+                # dead band, or a batch that did not fill the cap: no
+                # evidence about the current operating point
+                self._grow_streak = 0
 
     def _worker(self):
         while self.running:
@@ -96,6 +168,7 @@ class RetrievalServer:
             fut.set_exception(e)
             return
         fut.set_result(res)
+        self._observe_latency([res])
 
     def _serve_batch(self, batch):
         claimed = [(req, fut) for req, fut in batch
@@ -112,6 +185,7 @@ class RetrievalServer:
             return
         for (_, fut), res in zip(claimed, results):
             fut.set_result(res)
+        self._observe_latency(results)
 
     def stop(self):
         self.running = False
@@ -136,27 +210,83 @@ class RetrievalServer:
 
     # -- client API -------------------------------------------------------
     def submit(self, req: Request) -> Future:
+        """Front door: exact-cache fast path → admission → queue.
+
+        A cache hit resolves the future at once without touching the
+        queue (bitwise the cold answer). The admission controller then
+        classifies the request against the live per-stage EWMAs: a shed
+        fails the future with :class:`RequestShed`; a degrade stamps the
+        request's context so the engine runs the splade-only plan."""
         req.t_arrival = time.perf_counter()
         fut: Future = Future()
+        engine = self.engine
+        caches = getattr(engine, "caches", None)
+        if req.ctx is None and (self.admission is not None
+                                or caches is not None):
+            req.ctx = engine.context_for(req)
+        hit = (engine.cache_lookup(req, count_miss=False)
+               if caches is not None else None)
+        if hit is not None:
+            fut.set_running_or_notify_cancel()
+            fut.set_result(hit)
+            return fut
+        if self.admission is not None:
+            stats = engine.retriever.pipeline_stats
+            degradable = (req.method in ("hybrid", "rerank")
+                          and req.term_ids is not None
+                          and len(req.term_ids) > 0)
+            with self._lock:
+                cap = self.batch_cap
+            d = self.admission.decide(
+                req.method, degradable, stats.snapshot()["stages"],
+                queue_depth=self.queue.qsize(), batch_cap=cap,
+                deadline_ms=req.deadline_ms)
+            if d.admission == ADMIT_SHED:
+                with self._lock:
+                    self.sheds += 1
+                stats.counter("admission_sheds")
+                fut.set_running_or_notify_cancel()
+                fut.set_exception(RequestShed(d.reason,
+                                              d.predicted_full_ms))
+                return fut
+            if d.admission == ADMIT_DEGRADED:
+                req.ctx = req.ctx.degraded(d.reason)
+                stats.counter("admission_degraded")
         self.queue.put((req, fut))
         return fut
 
     def health(self) -> dict:
-        """Server vitals and the retriever's per-stage instrumentation."""
+        """Server vitals (queue depth, served/failed/shed counts, the
+        adaptive batch cap and its latency EWMA) and, where the engine
+        has a retriever, its per-stage instrumentation and counters;
+        the admission controller's and the caches' statistics where
+        they are set."""
         with self._lock:
-            failed, batches = self.failed, self.batches
+            failed, batches, sheds = self.failed, self.batches, self.sheds
+            cap, ewma = self.batch_cap, self.ewma_latency_ms
         h = {"queue_depth": self.queue.qsize(),
              "served": self.engine.served,
              "failed": failed,
+             "sheds": sheds,
              "batches": batches,
              "workers": sum(t.is_alive() for t in self.workers),
-             "max_batch": self.max_batch}
-        snap = self.engine.retriever.pipeline_stats.snapshot()
-        h["stages"] = {
-            name: {"ewma_ms": r["ewma_ms"], "wall_s": r["wall_s"],
-                   "dispatches": r["dispatches"],
-                   "device_dispatches": r["device_dispatches"],
-                   "pages_touched": r["pages_touched"]}
-            for name, r in snap["stages"].items()}
-        h["overlap_fraction"] = snap["overlap_fraction"]
+             "max_batch": self.max_batch,
+             "batch_cap": cap,
+             "ewma_latency_ms": ewma}
+        retr = getattr(self.engine, "retriever", None)
+        if retr is not None:
+            snap = retr.pipeline_stats.snapshot()
+            h["stages"] = {
+                name: {"ewma_ms": r["ewma_ms"], "wall_s": r["wall_s"],
+                       "dispatches": r["dispatches"],
+                       "device_dispatches": r["device_dispatches"],
+                       "pages_touched": r["pages_touched"]}
+                for name, r in snap["stages"].items()}
+            h["overlap_fraction"] = snap["overlap_fraction"]
+            h["counters"] = snap["counters"]
+        if self.admission is not None:
+            h["admission"] = self.admission.stats()
+        caches = getattr(self.engine, "caches", None)
+        if caches is not None:
+            h["caches"] = caches.stats()
         return h

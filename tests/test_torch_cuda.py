@@ -46,7 +46,8 @@ from repro_torch.kernels.splade_score.ops import (
 from repro_torch.kernels.splade_score.ref import (block_topk_ref,
                                                   splade_block_scores_batch_ref,
                                                   splade_row_scores_batch_ref)
-from repro_torch.serving.engine import ServeEngine
+from repro_torch.serving.context import CacheHierarchy
+from repro_torch.serving.engine import Request, ServeEngine
 from repro_torch.testing import (REF_MARGIN, assert_colbert_match,
                                  assert_topk_match)
 
@@ -522,3 +523,60 @@ def test_colbert_probe_stages_match_cpu(cuda, index_dir):
                                         st["q_valid"]).cpu().numpy()
               for s, st in ((gpu, g), (cpu, c))]
     np.testing.assert_allclose(*approx, **TOL)
+
+
+def test_cache_hits_equal_cold_on_card(cuda, index_dir):
+    """On the card, in one mixed batch: stage-1 hits (rows a splade batch
+    scored, read by hybrid and rerank; with misses beside them in one
+    group), colbert survivor hits at another k, and exact hits equal an
+    engine without caches bit for bit; the batch run again is all exact
+    hits and launches no kernel."""
+    rng = np.random.default_rng(7)
+    qs = [rng.normal(size=(int(rng.integers(4, 33)), 64)).astype(np.float32)
+          for _ in range(12)]
+    tids = [rng.integers(0, 500, 8) for _ in range(12)]
+    tw = [rng.uniform(0.1, 2, 8).astype(np.float32) for _ in range(12)]
+    retr = MultiStageRetriever(
+        SpladeIndex.load(index_dir / "splade"),
+        PLAIDSearcher(ColBERTIndex(index_dir / "colbert"),
+                      PlaidParams(nprobe=4, candidate_cap=96, ndocs=40,
+                                  k=30), device=cuda),
+        MultiStageParams(first_k=60, k=30), device=cuda)
+    plain = ServeEngine(retr, splade_backend="device")
+    cached = ServeEngine(retr, caches=CacheHierarchy(64, 64))
+
+    def reqs(spec):
+        return [Request(qid=n, method=m, q_emb=qs[i], term_ids=tids[i],
+                        term_weights=tw[i], k=k, alpha=a)
+                for n, (m, i, k, a) in enumerate(spec)]
+
+    cold = [("splade", i, 10, None) for i in range(4)] + [
+        ("colbert", i, 10, None) for i in range(4, 8)]
+    mixed = ([("hybrid", i, 20, 0.2 * i) for i in (0, 1, 8, 9)]
+             + [("rerank", i, 30, None) for i in (2, 3, 10)]
+             + [("colbert", i, 25, None) for i in range(4, 8)]
+             + [("splade", i, 10, None) for i in (0, 1)])
+    cached.process_batch(reqs(cold))
+    retr.reset_stage_stats()
+    got = cached.process_batch(reqs(mixed))
+    counters = retr.pipeline_stats.snapshot()["counters"]
+    assert [r.cache_hit for r in got] == [False] * 11 + [True] * 2
+    assert counters["cache_stage1_hits"] == 2 + 2 + 4
+    assert counters["cache_stage1_misses"] == 2 + 1
+    want = plain.process_batch(reqs(mixed))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(w.pids, g.pids)
+        np.testing.assert_array_equal(w.scores.view(np.uint32),
+                                      g.scores.view(np.uint32))
+    before = (fused_rerank_topk_batch.launches,
+              decompress_maxsim_scores_batch.launches,
+              splade_row_topk_batch.launches)
+    again = cached.process_batch(reqs(mixed))
+    assert before == (fused_rerank_topk_batch.launches,
+                      decompress_maxsim_scores_batch.launches,
+                      splade_row_topk_batch.launches)
+    assert all(r.cache_hit for r in again)
+    for g, a in zip(got, again):
+        np.testing.assert_array_equal(g.pids, a.pids)
+        np.testing.assert_array_equal(g.scores.view(np.uint32),
+                                      a.scores.view(np.uint32))

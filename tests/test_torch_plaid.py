@@ -222,6 +222,25 @@ def test_probe_refuses_tf32(searchers, small_corpus, flag):
     searchers[512].probe_batch(_queries(small_corpus, 0, 2))
 
 
+@pytest.mark.parametrize("precision", ["tf32", "ieee"])
+def test_probe_reads_fp32_precision(searchers, small_corpus, precision):
+    """Through torch's newer per-backend setting, TF32 is refused with
+    the port's own message (not torch's error about mixing the legacy
+    and new APIs), and "ieee" passes."""
+    matmul = torch.backends.cuda.matmul
+    before = matmul.fp32_precision
+    try:
+        matmul.fp32_precision = precision
+        if precision == "tf32":
+            with pytest.raises(RuntimeError,
+                               match="centroid probe.*fp32_precision='tf32'"):
+                searchers[512].probe_batch(_queries(small_corpus, 0, 2))
+        else:
+            searchers[512].probe_batch(_queries(small_corpus, 0, 2))
+    finally:
+        matmul.fp32_precision = before
+
+
 # -- the searcher ----------------------------------------------------------
 
 @pytest.mark.parametrize("cap", CAPS)
