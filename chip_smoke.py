@@ -76,6 +76,20 @@ Phases, in order; any failure raises and the script exits non-zero:
              waves of 32, caches off and on in turns, twice each; every
              repeat equals its first answer bit for bit. Every distinct
              answer of the phase is held to the CPU engine;
+4d. pipelined — the stage executor (``ServeEngine(pipeline_depth=2)``,
+             one CUDA stream per executor, an event per async window)
+             through ``RetrievalServer`` at max_batch=32 on the phase-3
+             index, device stage 1, fused tail: 64 mixed SPLADE-method
+             requests, 64 mmap ``colbert`` requests and 32 resident
+             ones, each at depth 1 and at depth 2 with ``single`` and
+             ``kind`` workers in turns (1, single, kind, kind, single,
+             1). Every answer equals the first depth-1 run's bit for
+             bit, whose answers are held to the CPU engine; each run's
+             launch counts show its path's kernels and no other; the
+             codes gather touches 0 residual pages; no pipeline thread
+             outlives its run. QPS, p50, p99, ``overlap_fraction``, the
+             stage walls and queue waits per run go on a ``pipelined``
+             line;
 5. time    — time each kernel with CUDA events at the serve shapes, and
              each at B=1, in an eager loop (the rerank tail's two
              kernels, the SPLADE kernel's two entry points and
@@ -93,7 +107,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 The ``{"kernels": [...]}`` line lists each kernel once per main path
 (``path``): the SPLADE methods served with the device stage 1, each
 colbert run with its tail's kernel, and the front door's cold mixed
-batch (``front_door``) with the three kernels of its path; ``launches`` is that path's own run's
+batch (``front_door``) with the three kernels of its path, and phase 4d's
+first single-worker runs (``pipelined_splade``, ``pipelined_colbert``,
+``pipelined_colbert_resident``); ``launches`` is that path's own run's
 count, and the times are at that path's candidate width (``C``).
 
 Arithmetic is IEEE fp32: TF32 is switched off for matmuls and cuDNN.
@@ -110,6 +126,7 @@ import pathlib
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -607,7 +624,10 @@ def serve_run(engine, warm, reqs, max_batch: int, counted: dict):
     set to 0 just before the requests and read just after."""
     from repro_torch.serving.server import RetrievalServer
 
-    engine.process_batch(warm)
+    if engine.pipelined:     # the executors start in the warm-up
+        engine.process_batch_async(warm).result(timeout=600)
+    else:
+        engine.process_batch(warm)
     server = RetrievalServer(engine, max_batch=max_batch,
                              batch_timeout_ms=5.0)
     server.start()
@@ -635,6 +655,9 @@ def serve_run(engine, warm, reqs, max_batch: int, counted: dict):
         "p99_ms": float(np.percentile(lat, 99)),
         "splade_stage1_s": stages.get("splade_stage1"),
         "stage_wall_s": stages,
+        "stage_queue_wait_s": {n: r["queue_wait_s"]
+                               for n, r in health["stages"].items()},
+        "overlap_fraction": health["overlap_fraction"],
         "stage_pages": {n: r["pages_touched"]
                         for n, r in health["stages"].items()},
         "launches": launches,
@@ -1363,6 +1386,114 @@ def door_trace(retr, plain, counted, rng, s: Shapes, topics,
 
 
 # ---------------------------------------------------------------------------
+# phase 4d: the pipelined executor
+# ---------------------------------------------------------------------------
+
+def pipelined_workloads(s: Shapes):
+    """Phase 4d's workloads: (name, pool resident on the card, number of
+    requests, the kernels of its path)."""
+    return (("splade", False, s.n_requests,
+             ("splade_topk", "decompress_maxsim", "fused_rerank")),
+            ("colbert", False, s.n_requests, ("fused_rerank",)),
+            ("colbert_resident", True, min(32, s.n_requests),
+             ("fused_rerank",)))
+
+
+# depth 1, then the executor with each worker mode, in turns
+PIPELINED_TURNS = ((1, None), (2, "single"), (2, "kind"), (2, "kind"),
+                   (2, "single"), (1, None))
+
+
+def pipelined(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
+              device) -> dict:
+    """Phase 4d: serve each workload of :func:`pipelined_workloads`
+    through ``RetrievalServer`` at depth 1 and with the engine at
+    ``pipeline_depth=2``, single and kind workers, in the turns of
+    ``PIPELINED_TURNS`` (device stage 1, fused tail). Every answer
+    equals the first depth-1 run's bit for bit, whose answers are held
+    to the CPU engine; each run's launch counts show its path's kernels
+    and no other; the mmap codes gather touches no residual page; no
+    pipeline thread outlives its run. → {workload: [run line, ...]}."""
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.testing import REF_MARGIN, assert_colbert_match, \
+        assert_topk_match
+
+    counted = counted_kernels()
+    splade_reqs = make_requests(rng, s, topics, s.n_requests)
+    colbert_reqs = colbert_requests(rng, s, s.n_requests)
+    warm = {"splade": make_requests(rng, s, topics, 6, qid0=50_000),
+            "colbert": colbert_requests(rng, s, 4, qid0=50_100)}
+    pools = {False: make_retriever(path, device),
+             True: make_retriever(path, device, resident=True)}
+    out, first = {}, {}
+    for name, resident, n, kernels in pipelined_workloads(s):
+        retriever = pools[resident]
+        reqs = (splade_reqs if name == "splade" else colbert_reqs)[:n]
+        lines = out[name] = []
+        for depth, workers in PIPELINED_TURNS:
+            engine = ServeEngine(retriever, splade_backend="device",
+                                 pipeline_depth=depth,
+                                 pipeline_workers=workers or "single")
+            results, line = serve_run(
+                engine, warm["splade" if name == "splade" else "colbert"],
+                fresh(reqs), s.B, counted)
+            label = f"pipelined {name} depth {depth}" + (
+                f" {workers}" if workers else "")
+            left = [t for t in threading.enumerate()
+                    if t.name.startswith(("pipe-", "pipeline-retry"))]
+            for t in left:
+                t.join(timeout=30)
+            if any(t.is_alive() for t in left):
+                raise RuntimeError(f"{label}: pipeline threads left "
+                                   f"running: {[t.name for t in left]}")
+            check_launches(label, line["launches"], kernels)
+            pages = line["stage_pages"]
+            if not resident and name == "colbert" and (
+                    pages["host_gather:codes"] != 0
+                    or pages["host_gather:residuals"] == 0):
+                raise RuntimeError(f"{label}: residual pages touched by "
+                                   f"the codes / residual gathers: {pages}")
+            if name not in first:
+                first[name] = results
+            else:
+                same_bits(first[name], results, label)
+            line.update(workload=name, depth=depth, workers=workers,
+                        pool="resident" if resident else "mmap")
+            lines.append(line)
+            log(f"{label}: {line['qps']:.1f} QPS, p50 "
+                f"{line['p50_ms']:.1f} ms, p99 {line['p99_ms']:.1f} ms, "
+                f"overlap {line['overlap_fraction']:.3f}, {line['batches']} "
+                f"batches; stage walls {line['stage_wall_s']}; launches "
+                f"{line['launches']}; equal to depth 1 bit for bit")
+
+    cpu = make_retriever(path, "cpu")
+    ref_engine = ServeEngine(cpu)
+    for name, resident, n, _ in pipelined_workloads(s):
+        if name == "colbert_resident":
+            continue          # the prefix of the colbert draws, held below
+        deeper = [dataclasses.replace(r, k=r.k + REF_MARGIN)
+                  for r in (splade_reqs if name == "splade"
+                            else colbert_reqs)[:n]]
+        want = []
+        for lo in range(0, len(deeper), s.B):
+            want += ref_engine.process_batch(deeper[lo:lo + s.B])
+        for res, ref, req in zip(first[name], want, deeper):
+            what = f"pipelined {name}: qid {req.qid} {req.method}"
+            if req.method == "colbert":
+                assert_colbert_match(cpu.searcher, pools[False].searcher,
+                                     req.q_emb, (ref.scores, ref.pids),
+                                     (res.scores, res.pids), what=what)
+            else:
+                assert_topk_match(ref.scores, ref.pids, res.scores,
+                                  res.pids, what=what)
+    same_bits(first["colbert"][:len(first["colbert_resident"])],
+              first["colbert_resident"], "pipelined: resident vs mmap")
+    log("pipelined: every depth-1 answer matches the CPU engine, the "
+        "resident colbert answers equal the mmap ones bit for bit")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing
 # ---------------------------------------------------------------------------
 
@@ -1816,7 +1947,7 @@ SOURCES = {
 
 
 def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
-                   ctimes: dict, err: dict, s: Shapes) -> list:
+                   ctimes: dict, err: dict, s: Shapes, piped: dict) -> list:
     """The ``{"kernels": [...]}`` line's entries: one per main path and
     kernel, with that path's launches from its own run (counts set to 0
     just before it, read just after) and the kernel timed at that path's
@@ -1824,7 +1955,8 @@ def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
     first_k; every kernel, those off this path at 0 launches), and each
     colbert run's tail kernel on real survivors (C = ndocs); the front
     door's cold mixed batch with the kernels of its path, timed at the
-    serve shape."""
+    serve shape; phase 4d's first single-worker run of each workload
+    with the kernels of its path."""
     paths = [("serve_device", served["device"][0]["launches"], kname,
               times[kname]["batch"], err[kname], s.C) for kname in SOURCES]
     paths += [("front_door", door, kname, times[kname]["batch"], err[kname],
@@ -1836,6 +1968,14 @@ def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
                   ("colbert_split", "decompress_maxsim", "decompress_maxsim"),
                   ("colbert_resident", "fused_rerank", "fused_rerank"),
                   ("colbert_b1", "fused_rerank", "fused_rerank_b1"))]
+    single = {name: next(ln for ln in lines if ln["workers"] == "single")
+              for name, lines in piped.items()}
+    paths += [("pipelined_splade", single["splade"]["launches"], kname,
+               times[kname]["batch"], err[kname], s.C)
+              for kname in DOOR_KERNELS]
+    paths += [(f"pipelined_{name}", single[name]["launches"], "fused_rerank",
+               ctimes["fused_rerank"], ctimes["fused_rerank"]["max_abs_err"],
+               s.ndocs) for name in ("colbert", "colbert_resident")]
     out = []
     for path_name, launches, kname, t, max_err, C in paths:
         src, replaces = SOURCES[kname]
@@ -1910,6 +2050,10 @@ def main(argv=None) -> int:
                                          s, path, topics, device)
         log(f"phase 4c front door: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+        piped = pipelined(sub_rng(args.seed, "pipelined"), s, path, topics,
+                          device)
+        log(f"phase 4d pipelined: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         times = time_kernels(rng, s, device, peaks, path, topics, args.seed)
         ctimes = time_colbert(sub_rng(args.seed, "colbert timing"), s,
                               device, peaks, path)
@@ -1937,7 +2081,7 @@ def main(argv=None) -> int:
                 else dict(dataclasses.asdict(s), B=1),
                 "card": name, "power_limit": limit}), flush=True)
     kernels = kernel_entries(served, colbert, door_launches, times, ctimes,
-                             err, s)
+                             err, s, piped)
     print(json.dumps({"phase": "stage1_breakdown", **times["stage1"],
                       "card": name, "power_limit": limit}), flush=True)
     for backend, lines in served.items():
@@ -1951,6 +2095,8 @@ def main(argv=None) -> int:
     print(json.dumps({"phase": "colbert_timing", **ctimes, "card": name,
                       "power_limit": limit}), flush=True)
     print(json.dumps({"phase": "front_door", **door, "card": name,
+                      "power_limit": limit}), flush=True)
+    print(json.dumps({"phase": "pipelined", "runs": piped, "card": name,
                       "power_limit": limit}), flush=True)
     log(f"chip_smoke wall, build included: "
         f"{time.perf_counter() - t_all:.1f} s")

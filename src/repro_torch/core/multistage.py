@@ -30,7 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.common import resolve_device
+from repro_torch.common import HostCopy, resolve_device
 from repro_torch.core import hybrid as hybrid_mod
 from repro_torch.core.plaid import (PLAIDSearcher, pad_query_batch_host,
                                     pad_topk_host, topk_host)
@@ -400,11 +400,11 @@ class MultiStageRetriever:
                     s_scores, c, mask,
                     alpha=torch.as_tensor(cb.alphas, device=c.device),
                     normalizer=p.normalizer)
-            return cb.with_state(final_dev=c)
+            return cb.with_state(exact=HostCopy(c))
 
         def fuse_split(cb):
             s = cb.state
-            final = s["final_dev"].cpu().numpy()          # device sync
+            (final,) = s["exact"].wait()        # this batch's event only
             return answer(cb, *topk_host(final, s["pids_b"], cb.k))
 
         def score_fused(cb):
@@ -418,16 +418,19 @@ class MultiStageRetriever:
             else:
                 top = searcher.fused_topk_gathered(
                     q, q_valid, codes, packed, valid, mask, cb.k)
-            return cb.with_state(top_s=top[0], top_i=top[1])
+            return cb.with_state(top=HostCopy(*top))
 
         def fuse_fused(cb):
             s = cb.state
-            pids, scores = searcher.finalize_topk_fused(
-                s["top_s"], s["top_i"], s["pids_b"])      # device sync
+            top_s, top_i = s["top"].wait()      # this batch's event only
+            pids, scores = searcher.finalize_topk_fused(top_s, top_i,
+                                                        s["pids_b"])
             return answer(cb, pids, scores)
 
-        # the launching stage opens the async window, the sync stage
-        # closes it; each tail launches one hand-written kernel
+        # the launching stage opens the async window: it launches one
+        # hand-written kernel and enqueues its result's copy to the host
+        # behind an event; the sync stage closes the window by waiting
+        # for that event
         if self.rerank_backend == "fused":
             tail = (Stage("fused_rerank", DEVICE, score_fused,
                           opens_async=True, device_dispatches=1),

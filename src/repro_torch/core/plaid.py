@@ -24,12 +24,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch.common import resolve_device
+from repro_torch.common import resolve_device, settle
 from repro_torch.core import hybrid as hybrid_mod
 from repro_torch.index.builder import ColBERTIndex
 from repro_torch.kernels.decompress_maxsim.ops import (
@@ -242,6 +243,7 @@ class PLAIDSearcher:
         self.bucket_weights = torch.as_tensor(
             np.asarray(index.bucket_weights, np.float32), device=self.device)
         self.device_resident = device_resident
+        self._build_lock = threading.Lock()
         if device_resident:
             store = index.store
             # copies: the mmap pool is read-only
@@ -253,14 +255,25 @@ class PLAIDSearcher:
                                                device=self.device)
             self.dev_doclens = torch.as_tensor(index.doclens,
                                                device=self.device)
+        settle(self.device)
 
     @functools.cached_property
     def ivf_padded(self) -> torch.Tensor:
         """The IVF as (K, longest list) int32 rows with -1 fill, on the
         device; built when stage 2 first runs, so a retriever that serves
-        only the SPLADE methods never holds it."""
-        return torch.as_tensor(self.index.ivf.as_padded(),
-                               device=self.device)
+        only the SPLADE methods never holds it. Built once under a lock
+        (two pipeline workers may ask at once) and complete before any
+        stream reads it."""
+        with self._build_lock:
+            padded = vars(self).get("ivf_padded")
+            if padded is None:
+                padded = torch.as_tensor(self.index.ivf.as_padded(),
+                                         device=self.device)
+                settle(self.device)
+                # stored before the lock is let go, so that a second
+                # caller waiting on it finds the tensor
+                vars(self)["ivf_padded"] = padded
+            return padded
 
     def to_device(self, *arrays):
         """Host arrays (or tensors) → tensors on the searcher's device."""
@@ -381,16 +394,15 @@ class PLAIDSearcher:
             normalizer=normalizer)
 
     @staticmethod
-    def finalize_topk_fused(top_s, top_i, pids_b: np.ndarray):
+    def finalize_topk_fused(top_s: np.ndarray, top_i: np.ndarray,
+                            pids_b: np.ndarray):
         """Map a selected top-k back to pids on the host: (top_s (B, kk),
-        top_i (B, kk)) device tensors → (pids (B, kk) int64 with -1 at
-        -inf slots, scores (B, kk) f32). The host copy waits for the
-        device."""
-        s_np = top_s.cpu().numpy()
-        i_np = top_i.cpu().numpy().astype(np.int64)
-        pids = np.take_along_axis(np.asarray(pids_b),
-                                  np.clip(i_np, 0, None), axis=1)
-        return np.where(s_np > -np.inf, pids, -1), s_np
+        top_i (B, kk)) host copies of the device top-k → (pids (B, kk)
+        int64 with -1 at -inf slots, scores (B, kk) f32)."""
+        pids = np.take_along_axis(
+            np.asarray(pids_b), np.clip(top_i.astype(np.int64), 0, None),
+            axis=1)
+        return np.where(top_s > -np.inf, pids, -1), top_s
 
     @staticmethod
     def finalize_topk(exact, pids_b: np.ndarray, k: int):

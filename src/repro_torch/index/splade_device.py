@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.common import resolve_device
+from repro_torch.common import resolve_device, settle
 from repro_torch.index.splade_index import SpladeIndex
 from repro_torch.kernels.splade_score.ops import (sort_rows,
                                                   splade_row_topk_packed)
@@ -58,6 +58,9 @@ class SpladeDeviceCache:
             self.row_pids, self.row_imps = self.pids, self.imps
         self.quantum = float(index.quantum)
         self.n_docs = int(index.n_docs)
+        # the rows' sort runs on the building thread's stream; pipeline
+        # executors read them from theirs
+        settle(self.device)
 
     def nbytes(self) -> int:
         """Bytes of the padded layout (``as_padded``)."""

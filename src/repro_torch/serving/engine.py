@@ -8,6 +8,14 @@ With a :class:`~repro_torch.serving.context.CacheHierarchy` the engine
 answers exact-cache hits itself (bitwise the cold answer, no kernel
 launched) and runs only the misses; the retriever's plans consult the
 stage-1 cache through the per-request contexts.
+
+With ``pipeline_depth >= 2`` the engine runs micro-batches through the
+stage pipeline (:class:`~repro_torch.serving.pipeline.PipelineExecutor`,
+one per method, each on its own CUDA stream on the card), so that
+micro-batch N+1's host mmap gather overlaps micro-batch N's device
+work. ``process_batch_async`` feeds the pipeline head and returns a
+Future resolved at the tail; ``pipeline_depth=1`` (default) keeps the
+synchronous path. Both give the same answers bit for bit.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+from concurrent.futures import Future
 from typing import Optional
 
 import numpy as np
@@ -29,6 +38,12 @@ from repro_torch.serving.context import (
     freeze,
     query_digest,
     stage1_cache_key,
+)
+from repro_torch.serving.pipeline import (
+    WORKER_MODES,
+    PipelineExecutor,
+    PipelineStopped,
+    gather_futures,
 )
 
 
@@ -77,7 +92,9 @@ class Result:
 class ServeEngine:
     def __init__(self, retriever: MultiStageRetriever,
                  splade_backend: Optional[str] = None,
-                 caches: Optional[CacheHierarchy] = None):
+                 caches: Optional[CacheHierarchy] = None,
+                 pipeline_depth: int = 1,
+                 pipeline_workers: str = "single"):
         """``splade_backend`` (host | device) switches the retriever's
         stage-1 scorer at construction time — a convenience for
         retrievers built elsewhere, NOT a per-engine scope: the
@@ -89,7 +106,16 @@ class ServeEngine:
         ``caches``: optional :class:`CacheHierarchy`. The engine reads
         and fills the exact result cache itself; the stage-1 cache is
         attached to the retriever, whose plans consult it through the
-        per-request contexts passed with each batch."""
+        per-request contexts passed with each batch.
+
+        ``pipeline_depth``: 1 = synchronous batches; >= 2 = the stage
+        pipeline with that many batches in flight per method.
+        ``pipeline_workers``: the executors' scheduling mode,
+        ``"single"`` (software pipelining) or ``"kind"`` (a host and a
+        device worker thread; see ``PipelineExecutor``)."""
+        if pipeline_workers not in WORKER_MODES:
+            raise ValueError(f"pipeline_workers {pipeline_workers!r} not "
+                             f"in {WORKER_MODES}")
         self.retriever = retriever
         self.caches = caches
         if caches is not None:
@@ -98,8 +124,92 @@ class ServeEngine:
             retriever.set_splade_backend(splade_backend)
             if splade_backend != "host":
                 retriever.splade_device_cache()
+        self.pipeline_depth = max(1, pipeline_depth)
+        self.pipeline_workers = pipeline_workers
+        self._pipelines: dict = {}
+        self._plock = threading.Lock()
+        self._closed = False
         self._lock = threading.Lock()
         self.served = 0
+
+    # -- pipelining ------------------------------------------------------
+    @property
+    def pipelined(self) -> bool:
+        # a live (mutable) retriever must stay synchronous: executors
+        # hold compiled plans across batches, and a mutation mid-flight
+        # would race the stage graph
+        return (self.pipeline_depth > 1
+                and getattr(self.retriever, "live", None) is None)
+
+    def _pipeline(self, method: str) -> PipelineExecutor:
+        """Per-method executor over the method's compiled plan, built
+        lazily and rebuilt if the plan changed (a stage-1 or rerank
+        backend switch compiles another plan). The stale executor is
+        stopped OUTSIDE the registry lock — stop() joins worker threads,
+        and holding ``_plock`` across that would stall health() and
+        every concurrent dispatch."""
+        plan = self.retriever.compile_plan(method)   # validates method
+        stale = None
+        try:
+            with self._plock:
+                if self._closed:
+                    raise PipelineStopped("engine closed")
+                px = self._pipelines.get(method)
+                if px is not None and (px.plan is not plan
+                                       or not px.running):
+                    stale, px = px, None
+                if px is None:
+                    px = PipelineExecutor(
+                        plan, depth=self.pipeline_depth,
+                        stats=self.retriever.pipeline_stats,
+                        workers=self.pipeline_workers,
+                        device=self.retriever.device)
+                    self._pipelines[method] = px
+                return px
+        finally:
+            if stale is not None and stale.running:
+                stale.stop()
+
+    def drain_pipelines(self, timeout: Optional[float] = None) -> bool:
+        """Wait until no micro-batch is in flight in any executor;
+        False if ``timeout`` (seconds, for all of them) ran out."""
+        with self._plock:
+            pipes = list(self._pipelines.values())
+        deadline = None if timeout is None else time.perf_counter() + timeout
+        for px in pipes:
+            left = (None if deadline is None
+                    else max(0.0, deadline - time.perf_counter()))
+            if not px.drain(left):
+                return False
+        return True
+
+    def stop_pipelines(self):
+        """Stop the stage workers; in-flight micro-batches resolve or
+        fail their futures (PipelineStopped). The engine stays usable —
+        the next pipelined batch builds its executor anew — so a server
+        can stop() and start() again over the same engine."""
+        with self._plock:
+            pipes = list(self._pipelines.values())
+            self._pipelines.clear()
+        for px in pipes:
+            px.stop()
+
+    def close(self):
+        """stop_pipelines() and refuse to build new executors. Terminal."""
+        with self._plock:
+            self._closed = True
+        self.stop_pipelines()
+
+    def pipeline_health(self) -> dict:
+        """Executor vitals: queue depths per stage, per method. (Per-stage
+        timing, queue waits, pages and overlap live in the retriever's
+        ``pipeline_stats`` snapshot, which ``RetrievalServer.health``
+        reports.)"""
+        with self._plock:            # _pipeline() inserts concurrently
+            pipes = dict(self._pipelines)
+        return {"depth": self.pipeline_depth,
+                "queues": {m: px.queue_depths()
+                           for m, px in pipes.items()}}
 
     # -- request context & caching ---------------------------------------
     def context_for(self, req: Request) -> RequestContext:
@@ -265,3 +375,116 @@ class ServeEngine:
             self._cache_store(r, res)
             results[miss_idx[j]] = res
         return results
+
+    def process_batch_async(self, reqs: list[Request]) -> Future:
+        """Feed a micro-batch to the stage pipeline; the returned Future
+        resolves with the ``list[Result]`` at the pipeline tail.
+
+        Per-request results equal :meth:`process_batch`'s bit for bit: a
+        single-method batch runs its plan as one CandidateBatch; a mixed
+        batch is grouped per method, each group submitted to its
+        method's executor, and the results scattered back into request
+        order as the synchronous mixed path does. Exact-cache hits are
+        peeled off first; a batch of hits only resolves at once and runs
+        no stage. ``submit`` blocks while an executor is full, so callers
+        are backpressured by ``pipeline_depth``."""
+        out: Future = Future()
+        out.set_running_or_notify_cancel()
+        if not self.pipelined:
+            try:
+                out.set_result(self.process_batch(reqs))
+            except Exception as e:
+                out.set_exception(e)
+            return out
+
+        self._ensure_ctxs(reqs)
+        hits: list = [None] * len(reqs)
+        miss_idx = []
+        for i, r in enumerate(reqs):
+            hit = self.cache_lookup(r)
+            if hit is not None:
+                hits[i] = hit
+            else:
+                miss_idx.append(i)
+        if not miss_idx:
+            out.set_result(hits)
+            return out
+        miss = [reqs[i] for i in miss_idx]
+
+        t_start = time.perf_counter()
+        n = len(miss)
+        k_max = max(r.k for r in miss)
+        retr = self.retriever
+        methods = [self._effective_method(r) for r in miss]
+        raw_alphas = [r.alpha for r in miss]
+        alphas = retr._alpha_array(
+            None if all(a is None for a in raw_alphas) else raw_alphas, n)
+        groups = []                      # (method, idx, CandidateBatch)
+        for m in dict.fromkeys(methods):
+            idx = [i for i, mi in enumerate(methods) if mi == m]
+            cb = retr.build_batch(
+                m, q_embs=[miss[i].q_emb for i in idx],
+                term_ids=[miss[i].term_ids for i in idx],
+                term_weights=[miss[i].term_weights for i in idx],
+                alphas=alphas[idx], k=k_max,
+                ctxs=[miss[i].ctx for i in idx])
+            groups.append((m, idx, cb))
+
+        futs = []
+        try:
+            # resolve every group's executor BEFORE submitting any work:
+            # an unknown method then fails the batch without first
+            # running (and throwing away) the valid groups' retrieval
+            pipes = [self._pipeline(m) for m, _, _ in groups]
+            for px, (_, _, cb) in zip(pipes, groups):
+                futs.append(px.submit(cb))
+        except Exception as e:
+            # submit-time failure (unknown method, stopped pipeline):
+            # fail the whole batch; the server retries request by request
+            out.set_exception(e)
+            return out
+
+        def finish(f: Future):
+            e = f.exception()
+            if e is not None:
+                out.set_exception(e)
+                return
+            try:
+                assembled = self._assemble(miss, groups, f.result(), n,
+                                           k_max, t_start)
+            except Exception as err:
+                out.set_exception(err)
+                return
+            for j, res in enumerate(assembled):
+                hits[miss_idx[j]] = res
+            out.set_result(hits)
+
+        gather_futures(futs).add_done_callback(finish)
+        return out
+
+    def _assemble(self, reqs, groups, cbs, n: int, k_max: int,
+                  t_start: float) -> list[Result]:
+        """The tail of :meth:`process_batch_async`: the groups' answers
+        in request order, cut to each request's k, stored in the exact
+        cache where they are full quality."""
+        if len(groups) == 1:
+            pids, scores = cbs[0].pids, cbs[0].scores
+        else:
+            pids = np.full((n, k_max), -1, np.int64)
+            scores = np.full((n, k_max), -np.inf, np.float32)
+            for (_, idx, _), cb in zip(groups, cbs):
+                MultiStageRetriever.scatter_group(pids, scores, idx,
+                                                  cb.pids, cb.scores)
+        t_done = time.perf_counter()
+        with self._lock:
+            self.served += n
+        out = []
+        for i, r in enumerate(reqs):
+            degraded, reason = self._degrade_info(r)
+            res = Result(qid=r.qid, pids=pids[i][:r.k],
+                         scores=scores[i][:r.k], t_arrival=r.t_arrival,
+                         t_start=t_start, t_done=t_done,
+                         degraded=degraded, degrade_reason=reason)
+            self._cache_store(r, res)
+            out.append(res)
+        return out

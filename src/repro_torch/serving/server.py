@@ -12,15 +12,21 @@ With ``latency_slo_ms`` set, the effective batch cap adapts: an EWMA of
 batch service time shrinks it under SLO pressure and grows it back when
 there is headroom.
 
+Pipelining: when the engine has ``pipeline_depth >= 2`` a worker no
+longer owns a batch end to end — it feeds the engine's stage pipeline
+and goes straight on to collecting the next micro-batch while the
+pipeline's tail resolves the futures, so that batch N+1's host mmap
+gather overlaps batch N's device work.
+
 Front door: ``submit`` answers an exact-cache hit at once, without the
 queue; an :class:`~repro_torch.serving.admission.AdmissionController`
 then admits the request at full quality, degrades it to the splade-only
 plan, or sheds it before it is queued.
 
-Fault tolerance: ``drain()`` completes queued work; a failing batch is
-retried request by request so one poisoned query cannot fail its
-co-batched neighbours; ``stop()`` fails still-queued futures instead of
-leaving clients waiting forever.
+Fault tolerance: ``drain()`` completes queued and in-flight work; a
+failing batch is retried request by request so one poisoned query
+cannot fail its co-batched neighbours; ``stop()`` fails still-queued
+futures instead of leaving clients waiting forever.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from typing import Optional
 from repro_torch.serving.admission import AdmissionController, RequestShed
 from repro_torch.serving.context import ADMIT_DEGRADED, ADMIT_SHED
 from repro_torch.serving.engine import Request, ServeEngine
+from repro_torch.serving.pipeline import PipelineStopped
 
 
 class RetrievalServer:
@@ -74,6 +81,8 @@ class RetrievalServer:
         self.failed = 0
         self.batches = 0
         self._lock = threading.Lock()
+        self._retry_cond = threading.Condition()
+        self._retries = 0                # pipelined failure retries live
 
     # -- lifecycle -------------------------------------------------------
     def start(self):
@@ -147,7 +156,16 @@ class RetrievalServer:
             try:
                 with self._lock:
                     self.batches += 1
-                if len(batch) == 1:
+                # read per batch, not once at start(): an engine whose
+                # depth changes at run time moves new batches to the
+                # other dispatch path (engines without a pipeline stay
+                # synchronous)
+                if getattr(self.engine, "pipelined", False):
+                    # feed the stage pipeline and move on: its tail
+                    # resolves the futures while this worker collects
+                    # the next micro-batch
+                    self._dispatch_pipelined(batch)
+                elif len(batch) == 1:
                     self._serve_one(*batch[0])
                 else:
                     self._serve_batch(batch)
@@ -187,11 +205,78 @@ class RetrievalServer:
             fut.set_result(res)
         self._observe_latency(results)
 
+    def _dispatch_pipelined(self, batch):
+        """Feed the claimed micro-batch to the engine's stage pipeline.
+        Blocks only on backpressure (an executor full); completion is
+        handled at the pipeline's tail by :meth:`_resolve_pipelined`."""
+        claimed = [(req, fut) for req, fut in batch
+                   if fut.set_running_or_notify_cancel()]
+        if not claimed:
+            return
+        try:
+            agg = self.engine.process_batch_async(
+                [req for req, _ in claimed])
+        except Exception as e:
+            for _, fut in claimed:
+                fut.set_exception(e)
+            with self._lock:
+                self.failed += len(claimed)
+            return
+        agg.add_done_callback(
+            lambda f: self._resolve_pipelined(claimed, f))
+
+    def _resolve_pipelined(self, claimed, agg):
+        """Tail of the pipeline (runs on a stage worker thread): set the
+        per-request futures, or — keeping the synchronous path's
+        isolation — retry a failed batch request by request, so that
+        one poisoned query cannot fail its co-batched neighbours."""
+        exc = agg.exception()
+        if exc is None:
+            results = agg.result()
+            for (_, fut), res in zip(claimed, results):
+                fut.set_result(res)
+            self._observe_latency(results)
+            return
+        if isinstance(exc, PipelineStopped) and not self.running:
+            # server shutdown: fail at once instead of serving again.
+            # (A PipelineStopped while the server runs — an executor
+            # rebuilt by a backend switch — takes the retry below.)
+            with self._lock:
+                self.failed += len(claimed)
+            for req, fut in claimed:
+                fut.set_exception(RuntimeError(
+                    f"server stopped mid-flight for qid={req.qid}"))
+            return
+        # retry on a thread of its own: this callback runs on a pipeline
+        # stage worker, and synchronous retrievals here would stall every
+        # batch in flight behind it. Counted, so that drain() waits for
+        # the retries as well as the pipeline.
+        with self._retry_cond:
+            self._retries += 1
+
+        def retry():
+            try:
+                for req, fut in claimed:
+                    self._serve_one(req, fut, claimed=True)
+            finally:
+                with self._retry_cond:
+                    self._retries -= 1
+                    self._retry_cond.notify_all()
+
+        threading.Thread(target=retry, name="pipeline-retry",
+                         daemon=True).start()
+
     def stop(self):
         self.running = False
         for t in self.workers:
             t.join(timeout=2.0)
         self.workers.clear()
+        # stop the stage pipelines: batches in flight resolve or fail
+        # their futures (none hangs) before the queued ones are failed.
+        # stop_pipelines, not close: the engine is the caller's and
+        # must survive a stop() and start()
+        if hasattr(self.engine, "stop_pipelines"):
+            self.engine.stop_pipelines()
         # fail whatever never got served — clients must not hang forever
         while True:
             try:
@@ -204,9 +289,28 @@ class RetrievalServer:
                                  f"qid={req.qid}"))
             self.queue.task_done()
 
-    def drain(self):
-        """Complete all queued work."""
-        self.queue.join()
+    def drain(self, timeout: Optional[float] = None) -> bool:
+        """Complete all queued work: the queue, the micro-batches in
+        flight in the stage pipelines (the queue empties once they are
+        fed) and the retries of failed pipelined batches. False if
+        ``timeout`` (seconds, for all of it) ran out first."""
+        deadline = None if timeout is None else time.perf_counter() + timeout
+
+        def left():
+            return (None if deadline is None
+                    else max(0.0, deadline - time.perf_counter()))
+
+        q = self.queue
+        with q.all_tasks_done:
+            if not q.all_tasks_done.wait_for(
+                    lambda: q.unfinished_tasks == 0, left()):
+                return False
+        if (getattr(self.engine, "pipelined", False)
+                and not self.engine.drain_pipelines(left())):
+            return False
+        with self._retry_cond:
+            return self._retry_cond.wait_for(lambda: self._retries == 0,
+                                             left())
 
     # -- client API -------------------------------------------------------
     def submit(self, req: Request) -> Future:
@@ -260,7 +364,8 @@ class RetrievalServer:
         adaptive batch cap and its latency EWMA) and, where the engine
         has a retriever, its per-stage instrumentation and counters;
         the admission controller's and the caches' statistics where
-        they are set."""
+        they are set; the executors' queue depths when the engine is
+        pipelined."""
         with self._lock:
             failed, batches, sheds = self.failed, self.batches, self.sheds
             cap, ewma = self.batch_cap, self.ewma_latency_ms
@@ -280,6 +385,7 @@ class RetrievalServer:
                 name: {"ewma_ms": r["ewma_ms"], "wall_s": r["wall_s"],
                        "dispatches": r["dispatches"],
                        "device_dispatches": r["device_dispatches"],
+                       "queue_wait_s": r["queue_wait_s"],
                        "pages_touched": r["pages_touched"]}
                 for name, r in snap["stages"].items()}
             h["overlap_fraction"] = snap["overlap_fraction"]
@@ -289,4 +395,6 @@ class RetrievalServer:
         caches = getattr(self.engine, "caches", None)
         if caches is not None:
             h["caches"] = caches.stats()
+        if getattr(self.engine, "pipelined", False):
+            h["pipeline"] = self.engine.pipeline_health()
         return h

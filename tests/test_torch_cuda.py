@@ -17,11 +17,13 @@ decompress+MaxSim.
 """
 
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.common import HostCopy
 from repro_torch.core.multistage import (METHODS, MultiStageParams,
                                          MultiStageRetriever)
 from repro_torch.core.plaid import (PLAIDSearcher, PlaidParams,
@@ -48,10 +50,14 @@ from repro_torch.kernels.splade_score.ref import (block_topk_ref,
                                                   splade_row_scores_batch_ref)
 from repro_torch.serving.context import CacheHierarchy
 from repro_torch.serving.engine import Request, ServeEngine
+from repro_torch.serving.pipeline import (DEVICE, HOST, CandidateBatch,
+                                          PipelineExecutor, Stage, StagePlan)
 from repro_torch.testing import (REF_MARGIN, assert_colbert_match,
                                  assert_topk_match)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+TIMEOUT = 30.0          # seconds: the bound on every wait of the pipeline
+SLEEP_CYCLES = 1_000_000_000   # torch.cuda._sleep: ~0.5 s of device time
 
 pytestmark = pytest.mark.cuda
 
@@ -580,3 +586,165 @@ def test_cache_hits_equal_cold_on_card(cuda, index_dir):
         np.testing.assert_array_equal(g.pids, a.pids)
         np.testing.assert_array_equal(g.scores.view(np.uint32),
                                       a.scores.view(np.uint32))
+
+
+# -- the pipelined executor on the card -------------------------------------
+
+def _cb(i=0):
+    return CandidateBatch(method="x", k=1, term_ids=(np.asarray([i]),))
+
+
+def _id(cb):
+    return int(cb.term_ids[0][0])
+
+
+@pytest.mark.parametrize("workers", ["single", "kind"])
+def test_executor_runs_its_stages_on_its_own_stream(cuda, workers):
+    """Every stage an executor runs, on either worker, sees the
+    executor's stream as the current stream, not the default one."""
+    seen = []
+
+    def record(cb):
+        seen.append((torch.cuda.current_stream(cuda),
+                     threading.current_thread().name))
+        return cb
+
+    plan = StagePlan("x", (
+        Stage("host_gather", HOST, record),
+        Stage("device_score", DEVICE, lambda cb: record(cb).evolve(
+            pids=np.zeros((1, 1), np.int64)))))
+    px = PipelineExecutor(plan, depth=2, workers=workers, device=cuda)
+    try:
+        for f in [px.submit(_cb(i)) for i in range(3)]:
+            f.result(timeout=TIMEOUT)
+    finally:
+        px.stop()
+    assert px.stream is not None
+    assert px.stream != torch.cuda.default_stream(cuda)
+    assert len(seen) == 6 and all(st == px.stream for st, _ in seen)
+    names = {name for _, name in seen}
+    assert names == ({"pipe-x"} if workers == "single"
+                     else {"pipe-x-host", "pipe-x-device"})
+
+
+@pytest.mark.parametrize("workers", ["single", "kind"])
+def test_closing_stage_waits_for_its_own_event_only(cuda, workers):
+    """Batch 1's launch stage queues ~0.5 s of device work before its
+    copy; batch 0's closing stage, run after it, returns while batch 1's
+    event is still pending (a ``.cpu()`` there would wait for the whole
+    stream), with batch 0's own values."""
+    go = threading.Event()
+    copies, pending = {}, {}
+
+    def launch(cb):
+        i = _id(cb)
+        if i == 0:
+            go.wait(TIMEOUT)
+        x = torch.full((4,), float(i + 1), device=cuda)
+        if i == 1:
+            torch.cuda._sleep(SLEEP_CYCLES)
+        copies[i] = HostCopy(x * 2)
+        return cb.with_state(top=copies[i])
+
+    def close(cb):
+        (v,) = cb.state["top"].wait()
+        i = _id(cb)
+        if i + 1 in copies:
+            pending[i] = not copies[i + 1].event.query()
+        return cb.evolve(pids=np.zeros((1, 1), np.int64),
+                         scores=v[None])
+
+    plan = StagePlan("x", (
+        Stage("fused_rerank", DEVICE, launch, opens_async=True),
+        Stage("fused_rerank:sync", DEVICE, close, closes_async=True)))
+    px = PipelineExecutor(plan, depth=2, workers=workers, device=cuda)
+    try:
+        futs = [px.submit(_cb(0)), px.submit(_cb(1))]
+        go.set()
+        out = [f.result(timeout=TIMEOUT) for f in futs]
+    finally:
+        go.set()
+        px.stop()
+    assert pending[0] is True
+    np.testing.assert_array_equal(out[0].scores[0], np.full(4, 2.0))
+    np.testing.assert_array_equal(out[1].scores[0], np.full(4, 4.0))
+
+
+def test_executor_stream_waits_for_state_built_before_it(cuda):
+    """Device state written on the default stream behind ~0.5 s of work,
+    then copied by the executor's first stage on its own stream: the
+    executor's stream waits for it at creation, so the copy reads the
+    written values. Everything is allocated before the sleep, so that no
+    allocation in the stage synchronises the device."""
+    torch.cuda.Stream(device=cuda)        # the stream pool, made early
+    x = torch.zeros(1 << 20, device=cuda)
+    y = torch.empty_like(x)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    x.fill_(7.0)
+
+    def copy(cb):
+        y.copy_(x)
+        return cb.evolve(pids=np.zeros((1, 1), np.int64))
+
+    px = PipelineExecutor(StagePlan("x", (Stage("copy", DEVICE, copy),)),
+                          device=cuda)
+    try:
+        px.submit(_cb()).result(timeout=TIMEOUT)
+    finally:
+        px.stop()
+    torch.cuda.synchronize()
+    assert bool((y == 7.0).all())
+
+
+@pytest.mark.parametrize("workers", ["single", "kind"])
+@pytest.mark.parametrize("resident", [False, True])
+def test_pipelined_equals_synchronous_on_card(cuda, index_dir, resident,
+                                              workers):
+    """All four methods with the device stage 1, mmap and resident
+    pools: ``process_batch_async`` at depth 2 equals ``process_batch``
+    on the same micro-batches bit for bit, each launching its path's
+    kernels on the executor's streams."""
+    rng = np.random.default_rng(8)
+    n = 24
+    retr = MultiStageRetriever(
+        SpladeIndex.load(index_dir / "splade"),
+        PLAIDSearcher(ColBERTIndex(index_dir / "colbert"),
+                      PlaidParams(nprobe=4, candidate_cap=96, ndocs=40,
+                                  k=30), device_resident=resident,
+                      device=cuda),
+        MultiStageParams(first_k=60, k=30), device=cuda)
+    sync = ServeEngine(retr, splade_backend="device")
+    piped = ServeEngine(retr, pipeline_depth=2, pipeline_workers=workers)
+    reqs = [Request(qid=i, method=METHODS[i % 4],
+                    q_emb=rng.normal(size=(int(rng.integers(4, 33)), 64))
+                    .astype(np.float32),
+                    term_ids=rng.integers(0, 500, 8),
+                    term_weights=rng.uniform(0.1, 2, 8).astype(np.float32),
+                    k=(10, 30)[i % 2], alpha=None if i % 3 else 0.25)
+            for i in range(n)]
+    batches = [reqs[i:i + 8] for i in range(0, n, 8)]
+    want = [r for b in batches for r in sync.process_batch(b)]
+    before = (fused_rerank_topk_batch.launches,
+              decompress_maxsim_scores_batch.launches,
+              splade_row_topk_batch.launches)
+    try:
+        futs = [piped.process_batch_async(b) for b in batches]
+        got = [r for f in futs for r in f.result(timeout=TIMEOUT)]
+        streams = {m: px.stream for m, px in piped._pipelines.items()}
+    finally:
+        piped.close()
+    after = (fused_rerank_topk_batch.launches,
+             decompress_maxsim_scores_batch.launches,
+             splade_row_topk_batch.launches)
+    # per batch: fused_rerank for rerank and colbert, decompress_maxsim
+    # for hybrid, the SPLADE top-k for the three SPLADE methods
+    assert tuple(a - b for a, b in zip(after, before)) == (6, 3, 9)
+    assert len({s.cuda_stream for s in streams.values()}) == 4
+    assert all(s != torch.cuda.default_stream(cuda)
+               for s in streams.values())
+    for w, g in zip(want, got):
+        assert w.qid == g.qid
+        np.testing.assert_array_equal(w.pids, g.pids)
+        np.testing.assert_array_equal(w.scores.view(np.uint32),
+                                      g.scores.view(np.uint32))
