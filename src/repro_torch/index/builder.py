@@ -1,4 +1,9 @@
-"""On-disk ColBERTv2 index: the writer of its file set and the loader.
+"""On-disk ColBERTv2 index: the build, the writer of its file set and
+the loader.
+
+embeddings (n_docs, doc_maxlen, dim) + lengths
+    → k-means centroids → residual codec → packed codes/residuals
+    → IVF → on-disk index directory (PagedStore format + metadata).
 
 The directory holds the PagedStore pool (``residuals.bin``, ``codes.bin``,
 ``meta.json``) plus centroids, bucket tables, doc lengths and offsets,
@@ -15,9 +20,14 @@ import pathlib
 import numpy as np
 import torch
 
+from repro_torch.common import resolve_device
 from repro_torch.core.store import PagedStore
 from repro_torch.index import ivf as ivf_mod
+from repro_torch.index import kmeans, residual
 from repro_torch.index.residual import ResidualCodec
+
+# bucket-table length → nbits; the codec packs 2 or 4 bits a code
+NBITS_OF_BUCKETS = {4: 2, 16: 4}
 
 
 def write_index(out_dir, cids: np.ndarray, packed: np.ndarray,
@@ -35,7 +45,10 @@ def write_index(out_dir, cids: np.ndarray, packed: np.ndarray,
     centroids = np.asarray(centroids, np.float32)
     doclens = np.asarray(doclens)
     dim = int(centroids.shape[1])
-    nbits = int(np.log2(len(bucket_weights)))
+    if len(bucket_weights) not in NBITS_OF_BUCKETS:
+        raise ValueError(f"{len(bucket_weights)} bucket weights: the codec "
+                         "has 4 (nbits=2) or 16 (nbits=4)")
+    nbits = NBITS_OF_BUCKETS[len(bucket_weights)]
     n_docs = len(doclens)
     doc_maxlen = int(doclens.max()) if doc_maxlen is None else doc_maxlen
     if doc_maxlen < int(doclens.max()):
@@ -69,6 +82,70 @@ def write_index(out_dir, cids: np.ndarray, packed: np.ndarray,
                  "n_centroids": int(n_centroids)})
     (out / "meta.json").write_text(json.dumps(meta))
     return out
+
+
+def build_colbert_index(out_dir, doc_embs: np.ndarray, doc_lens: np.ndarray,
+                        *, nbits: int = 4, n_centroids: int | None = None,
+                        kmeans_iters: int = 8, sample_cap: int = 65536,
+                        seed: int = 0, centroids: np.ndarray | None = None,
+                        bucket_cutoffs: np.ndarray | None = None,
+                        bucket_weights: np.ndarray | None = None,
+                        device="cuda"):
+    """doc_embs: (n_docs, doc_maxlen, dim) unit-norm; doc_lens: (n_docs,).
+
+    The k-means, the assignment of every token and the residual encode
+    run on ``device``; the sample draw (``np.random.default_rng(seed)``,
+    the JAX build's sample) and the codec fit run on the host. Training
+    starts from rows drawn by a CPU generator seeded with ``seed``
+    (:func:`kmeans.train_kmeans`), so the CPU and the card start alike.
+
+    Passing ``centroids`` + ``bucket_cutoffs`` + ``bucket_weights`` pins
+    the geometry: training and the fit are skipped and the corpus is
+    encoded against the given codec. Given a JAX build's three arrays,
+    the files written are that build's, byte for byte (up to assignment
+    ties between the devices' fp32 sums). Returns the directory."""
+    dev = resolve_device(device)
+    pinned = (centroids, bucket_cutoffs, bucket_weights)
+    if any(a is not None for a in pinned) and any(a is None for a in pinned):
+        raise ValueError("pinned geometry needs centroids, "
+                         "bucket_cutoffs and bucket_weights together")
+    n_docs, doc_maxlen, _ = doc_embs.shape
+
+    # flatten valid tokens
+    valid = np.arange(doc_maxlen)[None, :] < doc_lens[:, None]
+    flat = np.ascontiguousarray(doc_embs[valid], np.float32)
+    n_tokens = flat.shape[0]
+    flat_d = torch.from_numpy(flat).to(dev)
+
+    if centroids is not None:
+        codec = ResidualCodec(
+            centroids=torch.tensor(centroids, dtype=torch.float32),
+            bucket_cutoffs=torch.tensor(bucket_cutoffs, dtype=torch.float32),
+            bucket_weights=torch.tensor(bucket_weights, dtype=torch.float32),
+            nbits=nbits)
+        n_centroids = codec.centroids.shape[0]
+        cent_d = codec.centroids.to(dev)
+        cids_d, _ = kmeans.assign(flat_d, cent_d)
+    else:
+        if n_centroids is None:
+            n_centroids = max(16, min(kmeans.pick_n_centroids(n_tokens),
+                                      n_tokens // 4))
+        rng = np.random.default_rng(seed)
+        sample = flat[rng.choice(n_tokens, min(sample_cap, n_tokens),
+                                 replace=False)]
+        sample_d = torch.from_numpy(sample).to(dev)
+        cent_d = kmeans.train_kmeans(sample_d, n_centroids, kmeans_iters,
+                                     seed)
+        cids_d, _ = kmeans.assign(flat_d, cent_d)
+        sample_cids, _ = kmeans.assign(sample_d, cent_d)
+        codec = residual.fit_codec(cent_d.cpu().numpy(), sample,
+                                   sample_cids.cpu().numpy(), nbits)
+    packed = residual.encode_residuals(
+        flat_d, cids_d, cent_d, codec.bucket_cutoffs.to(dev), nbits)
+    return write_index(out_dir, cids_d.cpu().numpy(), packed.cpu().numpy(),
+                       codec.centroids.numpy(), codec.bucket_cutoffs.numpy(),
+                       codec.bucket_weights.numpy(), doc_lens, n_centroids,
+                       doc_maxlen=doc_maxlen)
 
 
 class ColBERTIndex:

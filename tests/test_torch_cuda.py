@@ -29,7 +29,11 @@ from repro_torch.core.multistage import (METHODS, MultiStageParams,
 from repro_torch.core.plaid import (PLAIDSearcher, PlaidParams,
                                     stage2_candidates_batch,
                                     stage3_approx_score_batch)
-from repro_torch.index.builder import ColBERTIndex, write_index
+from repro_torch.data.synth import SynthCfg, make_corpus
+from repro_torch.index import kmeans
+from repro_torch.index.builder import (ColBERTIndex, build_colbert_index,
+                                       write_index)
+from repro_torch.index.residual import encode_residuals, fit_codec
 from repro_torch.index.residual import decode_embeddings
 from repro_torch.index.splade_device import SpladeDeviceCache
 from repro_torch.index.splade_index import SpladeIndex, build_splade_index
@@ -748,3 +752,74 @@ def test_pipelined_equals_synchronous_on_card(cuda, index_dir, resident,
         np.testing.assert_array_equal(w.pids, g.pids)
         np.testing.assert_array_equal(w.scores.view(np.uint32),
                                       g.scores.view(np.uint32))
+
+
+INDEX_FILES = ("residuals.bin", "codes.bin", "centroids.npy",
+               "bucket_cutoffs.npy", "bucket_weights.npy", "doclens.npy",
+               "doc_offsets.npy", "ivf_pids.bin", "ivf_offsets.npy",
+               "meta.json")
+
+
+def _ties_only(pts, cent, a, b) -> int:
+    """Ids that differ between two assignments are ties (the point's two
+    best sims within 1e-6); → how many differ."""
+    diff = np.nonzero(a != b)[0]
+    if len(diff):
+        top2 = torch.topk(torch.from_numpy(pts[diff])
+                          @ torch.from_numpy(cent).T, 2).values
+        assert bool((top2[:, 0] - top2[:, 1] <= 1e-6).all()), diff
+    return len(diff)
+
+
+def test_build_on_card_matches_cpu(cuda, tmp_path):
+    """assign, update and encode_residuals on the card against the CPU,
+    a pinned build on the card byte for byte the CPU's (up to assignment
+    ties), and two free card builds from one seed byte for byte."""
+    corpus = make_corpus(SynthCfg(n_docs=300, n_queries=4, dim=64,
+                                  doc_maxlen=40, seed=5))
+    embs, lens = corpus["doc_embs"], corpus["doc_lens"]
+    pts = embs[np.arange(embs.shape[1])[None] < lens[:, None]]
+    rng = np.random.default_rng(6)
+    cent = rng.normal(size=(512, 64)).astype(np.float32)
+    cent /= np.linalg.norm(cent, axis=-1, keepdims=True)
+    tp, tc = torch.from_numpy(pts), torch.from_numpy(cent)
+    ids_c, sims_c = kmeans.assign(tp, tc)
+    ids_g, sims_g = kmeans.assign(tp.to(cuda), tc.to(cuda), chunk=1000)
+    _ties_only(pts, cent, ids_c.numpy(), ids_g.cpu().numpy())
+    np.testing.assert_allclose(sims_g.cpu().numpy(), sims_c.numpy(), rtol=0,
+                               atol=1e-6)
+
+    new_c, counts_c = kmeans.update(tp, tc, ids_c)
+    new_g, counts_g = kmeans.update(tp.to(cuda), tc.to(cuda), ids_c.to(cuda))
+    again, _ = kmeans.update(tp.to(cuda), tc.to(cuda), ids_c.to(cuda))
+    assert torch.equal(new_g, again)
+    assert torch.equal(counts_g.cpu(), counts_c)
+    np.testing.assert_allclose(new_g.cpu().numpy(), new_c.numpy(), rtol=0,
+                               atol=1e-6)
+
+    for nbits in (2, 4):
+        codec = fit_codec(cent, pts, ids_c.numpy(), nbits)
+        want = encode_residuals(tp, ids_c, tc, codec.bucket_cutoffs, nbits)
+        got = encode_residuals(tp.to(cuda), ids_c.to(cuda), tc.to(cuda),
+                               codec.bucket_cutoffs.to(cuda), nbits)
+        assert torch.equal(got.cpu(), want)
+
+    free = [build_colbert_index(tmp_path / name, embs, lens, nbits=4,
+                                kmeans_iters=4, seed=3, device=cuda)
+            for name in ("free", "again")]
+    for name in INDEX_FILES:
+        assert (free[0] / name).read_bytes() == \
+            (free[1] / name).read_bytes(), name
+    pin = {n: np.load(free[0] / f"{n}.npy")
+           for n in ("centroids", "bucket_cutoffs", "bucket_weights")}
+    card, host = (build_colbert_index(tmp_path / f"pinned_{dev}", embs,
+                                      lens, nbits=4, device=dev, **pin)
+                  for dev in (cuda, "cpu"))
+    ties = _ties_only(pts, pin["centroids"],
+                      np.fromfile(host / "codes.bin", np.int32),
+                      np.fromfile(card / "codes.bin", np.int32))
+    for name in INDEX_FILES:
+        if ties and name in ("codes.bin", "residuals.bin", "ivf_pids.bin",
+                             "ivf_offsets.npy"):
+            continue    # the tie's tokens, and the IVF lists they enter
+        assert (card / name).read_bytes() == (host / name).read_bytes(), name

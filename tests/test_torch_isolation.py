@@ -49,7 +49,8 @@ def _imported_names(path: pathlib.Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py",
+                            ROOT / "examples" / "quickstart_torch.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_repro(path):
     for name in _imported_names(path):
