@@ -14,8 +14,12 @@ Phases, in order; any failure raises and the script exits non-zero:
              empty C); fused must equal split bit for bit, and a B=1
              launch its batch row. Then MaxSim over fp32
              embeddings at the same width (ragged validity, an
-             all-invalid doc) against its plain version, and bit for bit
-             against decompress_maxsim on the decoded embeddings;
+             all-invalid doc) and at its edges (C 1, 7, 200; Lq 5, 32,
+             33, 128; d 64, 128, 256; masks that are not a prefix, a
+             row with every doc invalid), with B=1 launches: against its
+             plain version, and bit for bit against decompress_maxsim on
+             the decoded embeddings, against a second launch and, at
+             B=1, against its batch row;
 3. index   — write a synthetic index at full width (d=128, nbits=4,
              doc_maxlen=180, K=131072, SPLADE vocab 30522) with
              ``write_index`` and ``SpladeIndex.save``, 100,000 docs; then
@@ -116,7 +120,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              line;
 5. time    — time each kernel with CUDA events at the serve shapes, and
              each at B=1, in an eager loop (the rerank tail's two
-             kernels, the SPLADE kernel's two entry points and
+             kernels, MaxSim, the SPLADE kernel's two entry points and
              ``index_add_`` also by CUDA-graph replay, as ``graph_ms``
              and ``library_graph_ms``); and one
              device stage-1 dispatch in its parts (host padding, the
@@ -359,35 +363,103 @@ def check_kernels(rng, s: Shapes, device) -> dict:
     return err
 
 
-def check_maxsim(rng, s: Shapes, device) -> float:
-    """MaxSim over fp32 embeddings at full width: against its plain
-    version (tolerance: the plain version sums through cuBLAS), and bit
-    for bit against decompress_maxsim on the embeddings it decodes.
-    Returns the largest |kernel - plain|."""
+# MaxSim's edge batches: (B, C, Lq, d) at Ld = doc_maxlen, each with a
+# mask that is not a prefix and a row whose docs are all invalid; the
+# last two leave the least shared memory to spare
+MAXSIM_EDGES = tuple((4, C, Lq, 128) for C in (1, 7, 200)
+                     for Lq in (5, 32, 33, 128)) + (
+    (4, 200, 33, 64), (4, 7, 128, 256), (4, 7, 112, 480), (4, 7, 120, 448))
+
+
+def maxsim_edge_inputs(rng, B: int, C: int, Ld: int, Lq: int, d: int,
+                       device) -> dict:
+    """Decoded embeddings of random codes on a 4,096-row codebook,
+    valid positions drawn at 0.7 (not a prefix), row 1 all invalid,
+    ragged query lengths with a hole in the first row's mask."""
+    from repro_torch.index.residual import decode_embeddings
+    K = 4096
+    x = dict(q=unit(rng.normal(size=(B, Lq, d))),
+             packed=rng.integers(0, 256, (B, C, Ld, d // 2), dtype=np.uint8),
+             cids=rng.integers(0, K, (B, C, Ld), dtype=np.int32),
+             valid=rng.random((B, C, Ld)) < 0.7,
+             q_valid=np.arange(Lq)[None, :] < rng.integers(
+                 max(1, Lq // 2), Lq + 1, B)[:, None],
+             centroids=unit(rng.normal(size=(K, d))),
+             bw=np.sort(rng.normal(scale=0.05, size=16)).astype(np.float32))
+    x["valid"][1 % B] = False
+    x["q_valid"][0, Lq // 3] = False
+    x = to_dev(x, device)
+    x["emb"] = decode_embeddings(x["packed"], x["cids"], x["centroids"],
+                                 x["bw"], 4)
+    return x
+
+
+def hold_maxsim(x: dict, what: str, b1_rows=()) -> float:
+    """One batch through the MaxSim kernel: against its plain version
+    (tolerance: the plain version sums through cuBLAS), bit for bit
+    against decompress_maxsim on the embeddings it decodes and against a
+    second launch, and each row of ``b1_rows`` as a B=1 launch against
+    its plain version and, bit for bit, its batch row. Returns the
+    largest |kernel - plain|."""
     import torch
     from repro_torch.kernels.decompress_maxsim.ops import (
-        decompress_maxsim_scores_batch as dms)
+        decompress_maxsim_scores, decompress_maxsim_scores_batch as dms)
     from repro_torch.kernels.maxsim.ops import (maxsim_scores,
                                                 maxsim_scores_batch)
     from repro_torch.kernels.maxsim.ref import maxsim_scores_ref
     from repro_torch.testing import ATOL, RTOL
 
-    x = maxsim_inputs(rng, s, device)
-    got = maxsim_scores_batch(x["q"], x["emb"], x["valid"], x["q_valid"])
-    want = maxsim_scores_ref(x["q"], x["emb"], x["valid"], x["q_valid"])
+    args = (x["q"], x["emb"], x["valid"], x["q_valid"])
+    got = maxsim_scores_batch(*args)
+    want = maxsim_scores_ref(*args)
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
+    err = (got - want).abs().max().item() if got.numel() else 0.0
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                               rtol=RTOL, atol=ATOL, err_msg="maxsim")
-    assert got[1, 5].item() == 0.0, "an all-invalid doc must score 0"
-    split = dms(x["q"], x["packed"], x["cids"], x["valid"], x["centroids"],
-                x["bw"], nbits=4, q_valid=x["q_valid"])
+                               rtol=RTOL, atol=ATOL, err_msg=what)
+    none = ~x["valid"].any(dim=-1)
+    assert torch.all(got[none] == 0.0), \
+        f"{what}: an all-invalid doc must score 0"
+    tile = (x["packed"], x["cids"], x["valid"], x["centroids"], x["bw"])
+    split = dms(x["q"], *tile, nbits=4, q_valid=x["q_valid"])
     assert torch.equal(got.view(torch.int32), split.view(torch.int32)), \
-        "maxsim on decoded embeddings != decompress_maxsim"
-    one = maxsim_scores(x["q"][3], x["emb"][3], x["valid"][3],
-                        x["q_valid"][3])
-    assert torch.equal(one, got[3]), "B=1 maxsim != batch row"
-    log(f"maxsim: max |err| {err:.3g}, == decompress_maxsim bit for bit")
+        f"{what}: maxsim on decoded embeddings != decompress_maxsim"
+    again = maxsim_scores_batch(*args)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32)), \
+        f"{what}: two launches differ"
+    for b in b1_rows:
+        row = tuple(t[b] for t in args)
+        one = maxsim_scores(*row)
+        np.testing.assert_allclose(
+            one.cpu().numpy(), maxsim_scores_ref(*row).cpu().numpy(),
+            rtol=RTOL, atol=ATOL, err_msg=f"{what}: B=1 row {b}")
+        assert torch.equal(one.view(torch.int32), got[b].view(torch.int32)),\
+            f"{what}: B=1 maxsim != batch row {b}"
+        one_split = decompress_maxsim_scores(
+            x["q"][b], *(t[b] for t in tile[:3]), *tile[3:], nbits=4,
+            q_valid=x["q_valid"][b])
+        assert torch.equal(one.view(torch.int32),
+                           one_split.view(torch.int32)), \
+            f"{what}: B=1 maxsim != B=1 decompress_maxsim, row {b}"
+    return err
+
+
+def check_maxsim(rng, s: Shapes, device) -> float:
+    """MaxSim over fp32 embeddings: at full width (ragged prefix masks,
+    an all-invalid doc) with B=1 launches of three rows, then the edge
+    batches of ``MAXSIM_EDGES`` with B=1 launches of every row; each
+    held by ``hold_maxsim``. Returns the largest |kernel - plain|."""
+    x = maxsim_inputs(rng, s, device)
+    err = hold_maxsim(x, "maxsim full width", b1_rows=(0, 1, 3))
+    del x
+    log(f"maxsim full width: max |err| {err:.3g}, == decompress_maxsim "
+        "and a second launch bit for bit, B=1 rows == batch rows")
+    for B, C, Lq, d in MAXSIM_EDGES:
+        x = maxsim_edge_inputs(rng, B, C, s.Ld, Lq, d, device)
+        e = hold_maxsim(x, f"maxsim B={B} C={C} Lq={Lq} d={d}",
+                        b1_rows=range(B))
+        err = max(err, e)
+    log(f"maxsim edges {MAXSIM_EDGES}: max |err| {err:.3g}, every bit as "
+        "above")
     return err
 
 
@@ -2163,8 +2235,10 @@ def time_kernels(rng, s: Shapes, device, peaks, path: pathlib.Path,
                 "plain": lambda: maxsim_scores_ref(*args)}
 
     out["maxsim"] = {
-        "batch": measure(maxsim_fns(m), lambda: maxsim_bound(m, s, peaks)),
-        "b1": measure(maxsim_fns(m1), lambda: maxsim_bound(m1, s, peaks))}
+        "batch": measure(maxsim_fns(m), lambda: maxsim_bound(m, s, peaks),
+                         graph=True),
+        "b1": measure(maxsim_fns(m1), lambda: maxsim_bound(m1, s, peaks),
+                      graph=True)}
     del m, m1
 
     cache = SpladeDeviceCache(SpladeIndex.load(path / "splade", mmap=True),

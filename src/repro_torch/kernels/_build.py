@@ -36,7 +36,7 @@ SIGNATURES = {
     "fused_rerank_launch": ([_P] * 11 + [_I] * 7 + [_P], _I),
     "fused_rerank_smem_bytes": ([_I] * 4, ctypes.c_size_t),
     "maxsim_launch": ([_P] * 5 + [_I] * 5 + [_P], _I),
-    "maxsim_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "maxsim_smem_bytes": ([_I] * 4, ctypes.c_size_t),
     "splade_score_launch": ([_P, _P, _I, _P, _P, _P] + [_I] * 4 + [_P], _I),
     "splade_topk_launch": ([_P, _P, _I] + [_P] * 8 + [_I] * 5 + [_P], _I),
     "rt_error_string": ([_I], ctypes.c_char_p),

@@ -8,8 +8,8 @@
 // bit for bit.
 //
 // The per-pair arithmetic is that of score_tile.cuh, which the MaxSim
-// kernel over fp32 embeddings (maxsim.cu) still runs, so on decoded
-// embeddings the two agree bit for bit:
+// kernel over fp32 embeddings (maxsim.cu) keeps in its own tiling, so on
+// decoded embeddings the two agree bit for bit:
 // - decode: e[j] = centroids[cid][j] + bucket_weights[code_j], one fp32
 //   add;
 // - each (query token, doc token) dot product: one fmaf chain over

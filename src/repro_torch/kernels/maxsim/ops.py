@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._inputs import as_u8, on_cpu
+from repro_torch.kernels._inputs import aligned, as_u8, on_cpu
 from repro_torch.kernels.maxsim.ref import maxsim_scores_ref
 
 
@@ -43,13 +43,16 @@ def maxsim_scores_batch(q, docs, doc_valid, q_valid=None):
                          f"got {d}")
     if Lq > 128:
         raise ValueError(f"kernel takes at most 128 query tokens, got {Lq}")
-    q, docs = q.contiguous(), docs.contiguous()
+    if B * C * Ld >= 2 ** 31:
+        raise ValueError(f"kernel takes fewer than 2^31 doc tokens, got "
+                         f"{B * C * Ld}")
+    q, docs = aligned(q), aligned(docs)
     valid, qv = as_u8(doc_valid), as_u8(q_valid)
     out = torch.empty((B, C), dtype=torch.float32, device=q.device)
     if B * C == 0:
         return out
     lib = _build.load()
-    smem = lib.maxsim_smem_bytes(Lq, d)
+    smem = lib.maxsim_smem_bytes(Lq, d, B, C)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(f"maxsim needs {smem} B of shared memory at "
                          f"Lq={Lq}, d={d}")

@@ -173,6 +173,20 @@ def test_tile_takes_every_shape_the_per_warp_tile_took(cuda):
                     <= _build.MAX_SMEM_BYTES, (Lq, d, nbits)
 
 
+def test_maxsim_takes_every_shape_the_per_warp_kernel_took(cuda):
+    """The staged MaxSim body never refuses a shape that the earlier
+    one-warp-per-candidate kernel took: (Lq·(d+4) + 8·d + 16) floats of
+    shared memory, at most 232,448 bytes, at B·C from one to a batch."""
+    lib = _build.load()
+    for d in range(32, 1025, 32):
+        for Lq in range(1, 129):
+            if (Lq * (d + 4) + 8 * d + 16) * 4 > _build.MAX_SMEM_BYTES:
+                continue
+            for B, C in ((1, 1), (1, 200), (32, 200)):
+                assert lib.maxsim_smem_bytes(Lq, d, B, C) \
+                    <= _build.MAX_SMEM_BYTES, (Lq, d, B, C)
+
+
 def test_wrappers_reject_mixed_devices(cuda):
     q, packed, cids, valid, cmask, cent, bw, qv = _case(1, 1, 4, 2, 4, 8,
                                                         32, 4)
@@ -377,16 +391,44 @@ def test_splade_device_cache_equals_host_bitwise(cuda, index_dir):
                          5)
 
 
-def test_maxsim_kernel_matches_plain_and_decompress(cuda):
-    rng = np.random.default_rng(5)
-    B, C, Ld, Lq, d, K, nbits = 3, 40, 12, 32, 128, 500, 4
+@pytest.mark.parametrize("B,C,Ld,Lq,d,prefix", [
+    (3, 40, 12, 32, 128, False),
+    (4, 1, 180, 5, 128, False),
+    (4, 7, 180, 33, 128, False),
+    (4, 200, 180, 32, 128, True),
+    (4, 200, 180, 128, 128, False),
+    (2, 7, 70, 32, 64, False),
+    (2, 7, 70, 128, 256, True),
+    (2, 2, 17000, 8, 32, False),
+    (2, 7, 40, 112, 480, False),
+    (2, 7, 40, 120, 448, True),
+])
+def test_maxsim_kernel_matches_plain_and_decompress(cuda, B, C, Ld, Lq, d,
+                                                    prefix):
+    """The MaxSim kernel at its edges (one candidate, C not a multiple of
+    anything, Lq past a pass of 32 and at 128, d 64 to 256, masks that
+    are not a prefix, a row with every doc invalid, docs with more
+    chunks of 64 positions than a block's table holds, the shapes with
+    the least shared memory to spare): against its plain
+    version, bit for bit against decompress+MaxSim on the decoded
+    embeddings and against a second launch, and a B=1 launch against its
+    batch row."""
+    rng = np.random.default_rng(5 + C + Lq + d)
+    K, nbits = 500, 4
     q = torch.from_numpy(rng.normal(size=(B, Lq, d)).astype(np.float32))
     packed = torch.from_numpy(rng.integers(0, 256, (B, C, Ld, d * nbits // 8),
                                            dtype=np.uint8))
     cids = torch.from_numpy(rng.integers(0, K, (B, C, Ld), dtype=np.int32))
-    valid = torch.from_numpy(rng.random((B, C, Ld)) < 0.8)
-    valid[1, 7] = False                              # an all-invalid doc
-    qv = torch.from_numpy(rng.random((B, Lq)) < 0.9)
+    if prefix:
+        valid = torch.from_numpy(np.arange(Ld) < rng.integers(
+            0, Ld + 1, (B, C))[..., None])
+        qv = torch.from_numpy(np.arange(Lq) < rng.integers(
+            1, Lq + 1, B)[:, None])
+    else:
+        valid = torch.from_numpy(rng.random((B, C, Ld)) < 0.7)
+        qv = torch.from_numpy(rng.random((B, Lq)) < 0.8)
+    valid[0, 0] = False                              # an all-invalid doc
+    valid[B - 1] = False                             # a row of them
     cent = torch.from_numpy(rng.normal(size=(K, d)).astype(np.float32))
     bw = torch.linspace(-0.3, 0.3, 2 ** nbits)
     q, packed, cids, valid, qv, cent, bw = (
@@ -397,12 +439,15 @@ def test_maxsim_kernel_matches_plain_and_decompress(cuda):
     assert maxsim_scores_batch.launches == before + 1
     want = maxsim_scores_ref(q, emb, valid, qv)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
-    assert got[1, 7].item() == 0.0
+    assert got[0, 0].item() == 0.0 and torch.all(got[B - 1] == 0)
     dms = decompress_maxsim_scores_batch(q, packed, cids, valid, cent, bw,
                                          nbits=nbits, q_valid=qv)
     assert torch.equal(got.view(torch.int32), dms.view(torch.int32))
-    one = maxsim_scores(q[2], emb[2], valid[2], qv[2])
-    assert torch.equal(one, got[2])
+    again = maxsim_scores_batch(q, emb, valid, qv)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    for b in range(B):
+        one = maxsim_scores(q[b], emb[b], valid[b], qv[b])
+        assert torch.equal(one.view(torch.int32), got[b].view(torch.int32))
     half = maxsim_scores_batch(q.bfloat16(), emb.bfloat16(), valid, qv)
     assert half.dtype == torch.float32
 

@@ -75,6 +75,60 @@ def test_maxsim_batch_matches_jax(B, C, Ld, Lq, d, block_c):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def _masked_case(seed, B, C, Ld, Lq, d, prefix):
+    """Inputs whose doc and query masks are prefixes (ragged lengths) or
+    not (each position drawn on its own), with an all-invalid first doc
+    when there is more than one."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, Lq, d)).astype(np.float32)
+    docs = rng.normal(size=(B, C, Ld, d)).astype(np.float32)
+    if prefix:
+        valid = np.arange(Ld) < rng.integers(0, Ld + 1, (B, C))[..., None]
+        qv = np.arange(Lq) < rng.integers(1, Lq + 1, B)[:, None]
+    else:
+        valid = rng.random((B, C, Ld)) < 0.6
+        qv = rng.random((B, Lq)) < 0.7
+    if C > 1:
+        valid[0, 0] = False
+    return q, docs, valid, qv
+
+
+@pytest.mark.parametrize("B,C,Ld,Lq,d,prefix", [
+    (2, 5, 20, 33, 64, True),
+    (2, 5, 20, 33, 64, False),
+    (2, 3, 12, 128, 32, True),
+    (2, 3, 12, 128, 32, False),
+    (2, 4, 9, 16, 256, True),
+    (2, 4, 9, 16, 256, False),
+    (1, 1, 70, 24, 64, False),
+])
+def test_maxsim_edges_match_jax(B, C, Ld, Lq, d, prefix):
+    """The plain version at the CUDA kernel's edges (a second pass of 32
+    query tokens, 128 of them, d=256, masks that are or are not a prefix,
+    a lone candidate with more than one chunk of positions) against the
+    JAX reference and the Pallas body in interpret mode."""
+    q, docs, valid, qv = _masked_case(B * 31 + C + Lq + d, B, C, Ld, Lq, d,
+                                      prefix)
+    got = maxsim_scores_batch(*map(torch.from_numpy, (q, docs, valid, qv)))
+    assert got.shape == (B, C)
+    if C > 1:
+        assert got[0, 0].item() == 0.0
+    for impl in ("ref", "interpret"):
+        want = j_maxsim_batch(*map(jnp.asarray, (q, docs, valid, qv)),
+                              impl=impl, block_c=4)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   err_msg=impl, **TOL)
+    if B == 1:   # the single-query entry point, a B=1 launch on the card
+        one = maxsim_scores(*map(torch.from_numpy,
+                                 (q[0], docs[0], valid[0], qv[0])))
+        np.testing.assert_array_equal(one.numpy(), got[0].numpy())
+        for impl in ("ref", "interpret"):
+            want = j_maxsim(*map(jnp.asarray, (q[0], docs[0], valid[0],
+                                               qv[0])), impl=impl, block_c=4)
+            np.testing.assert_allclose(one.numpy(), np.asarray(want),
+                                       err_msg=impl, **TOL)
+
+
 def test_maxsim_bf16_inputs_are_cast_to_fp32():
     """A bf16 input is scored in fp32, as the JAX wrapper casts it:
     equal to the fp32 scores of the bf16-rounded values."""
