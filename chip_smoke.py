@@ -118,6 +118,31 @@ Phases, in order; any failure raises and the script exits non-zero:
              outlives its run. QPS, p50, p99, ``overlap_fraction``, the
              stage walls and queue waits per run go on a ``pipelined``
              line;
+4e. tcp    — the TCP front (``RetrievalServer.serve_tcp`` on
+             ``127.0.0.1:0``, ``serve_forever`` on a thread) on the
+             phase-3 index, device stage 1, fused tail, max_batch=32: at
+             depth 1, then at ``pipeline_depth=2`` with ``kind``
+             workers, 64 mixed SPLADE-method and 32 mmap ``colbert``
+             requests (the serve_plaid retriever of phase 4) from 8
+             client threads, each on one persistent connection, in turns
+             with the same requests submitted in process (in process,
+             TCP, TCP, in process). Every reply equals the first
+             in-process answer of its request bit for bit (where one
+             does not, the request is served alone and the error says
+             whether the row changed with its batch); each turn launches
+             its path's kernels and no other; the admin lines give the
+             JAX package's replies on a frozen index and ``health``
+             reports the bound port; four one-shot ``tcp_query`` calls
+             too. Then 32 requests on connections of their own and a
+             drain started while they are in flight, by
+             ``shutdown_gracefully()`` at depth 1 and by SIGTERM through
+             ``install_sigterm_handler()`` at depth 2: every one is
+             answered, ``serve_forever`` returns, no worker, executor or
+             drain thread is left, and the port refuses connections.
+             QPS, p50 and p99 per turn (at the client, and from submit
+             to the answer as the server measures it), its batches and
+             stage walls, bytes a line and the host's ``json.loads`` +
+             ``np.asarray`` time a request go on a ``tcp`` line;
 5. time    — time each kernel with CUDA events at the serve shapes, and
              each at B=1, in an eager loop (the rerank tail's two
              kernels, MaxSim, the SPLADE kernel's two entry points and
@@ -137,9 +162,10 @@ The ``{"kernels": [...]}`` line lists each kernel once per main path
 colbert run with its tail's kernel, and the front door's cold mixed
 batch (``front_door``) with the three kernels of its path, phase 4d's
 first single-worker runs (``pipelined_splade``, ``pipelined_colbert``,
-``pipelined_colbert_resident``), and phase 3b's serve on the card-built
-index (``built_index``); ``launches`` is that path's own run's
-count, and the times are at that path's candidate width (``C``).
+``pipelined_colbert_resident``), phase 3b's serve on the card-built
+index (``built_index``), and phase 4e's first TCP turn at each depth
+(``tcp``, ``tcp_pipelined``) with the three kernels of its path;
+``launches`` is that path's own run's count, and the times are at that path's candidate width (``C``).
 
 Arithmetic is IEEE fp32: TF32 is switched off for matmuls and cuDNN.
 The last line of standard output is
@@ -151,7 +177,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import pathlib
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -1591,6 +1620,343 @@ def pipelined(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: the TCP front
+# ---------------------------------------------------------------------------
+
+TCP_CLIENTS = 8        # client threads, one persistent connection each
+TCP_ONCE = (0, 1, -2, -1)   # requests asked again in one-shot tcp_query
+TCP_DRAIN = 32         # requests in flight when a drain starts
+# (label, pipeline depth, executor workers, how the drain starts)
+TCP_RUNS = (("tcp", 1, "single", "shutdown_gracefully"),
+            ("tcp_pipelined", 2, "kind", "sigterm"))
+# in process and over TCP, in turns
+TCP_TURNS = ("in_process", "tcp", "tcp", "in_process")
+# the port's refusal of a mutation on a frozen index (the JAX package's)
+LIVE_OFF = "live index not enabled (enable_live / --live)"
+
+
+def wire_line(req) -> bytes:
+    """A request as a client sends it: one line of JSON. The wire has
+    no α, so each request takes the retriever's."""
+    msg = {"qid": req.qid, "method": req.method, "k": req.k,
+           "q_emb": np.asarray(req.q_emb, np.float32).tolist()}
+    if req.term_ids is not None:
+        msg["term_ids"] = np.asarray(req.term_ids).tolist()
+        msg["term_weights"] = np.asarray(req.term_weights,
+                                         np.float32).tolist()
+    return (json.dumps(msg) + "\n").encode()
+
+
+class Conn:
+    """A client's persistent connection: a line out, its reply in.
+
+    Opening one waits for an admin line's reply, so that the server has
+    accepted it before the next is opened: the front listens with
+    ``socketserver``'s backlog of 5, and a burst of connections beyond
+    it has its SYNs dropped and retried after a second."""
+
+    def __init__(self, port: int):
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=600)
+        self.rfile = self.sock.makefile("rb")
+        reply = self.ask(b'{"op": "live_stats"}\n')
+        if reply != {"ok": True, "live": None}:
+            raise RuntimeError(f"live_stats over TCP: {reply}")
+
+    def ask(self, line: bytes) -> dict:
+        self.sock.sendall(line)
+        return json.loads(self.rfile.readline())
+
+    def close(self):
+        self.rfile.close()
+        self.sock.close()
+
+
+def closed_loop(calls, items) -> tuple:
+    """Serve ``items`` ((qid, x) pairs) from ``len(calls)`` client
+    threads, client i asking for items[i::n] one after another through
+    ``calls[i]``. → ({qid: answer}, client latencies in ms, wall s)."""
+    n = len(calls)
+    out, lat, errors = {}, [], []
+    lock = threading.Lock()
+
+    def client(i):
+        try:
+            for qid, x in items[i::n]:
+                t0 = time.perf_counter()
+                ans = calls[i](x)
+                dt = (time.perf_counter() - t0) * 1e3
+                with lock:
+                    out[qid] = ans
+                    lat.append(dt)
+        except Exception as e:            # reported below, on the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,),
+                                name=f"tcp-client-{i}", daemon=True)
+               for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"clients failed: {errors[:3]}")
+    return out, lat, wall
+
+
+def answer_bits(pids, scores) -> tuple:
+    return (np.asarray(pids).tolist(),
+            np.asarray(scores, np.float32).view(np.uint32).tolist())
+
+
+def hold_reply(label: str, reply: dict, want, engine, req) -> None:
+    """A TCP reply equals the in-process answer of its request bit for
+    bit. Where it does not, the request is served alone, and the error
+    says whether the row changed with its batch."""
+    if "error" in reply or reply.get("qid") != want.qid:
+        raise RuntimeError(f"{label}: qid {want.qid}: reply {reply}")
+    got = answer_bits(reply["pids"], reply["scores"])
+    if got == answer_bits(want.pids, want.scores):
+        return
+    alone = engine.process(fresh([req])[0])
+    verdict = ("the row changes with its batch"
+               if answer_bits(alone.pids, alone.scores) == got
+               else "served alone it gives neither")
+    raise AssertionError(
+        f"{label}: qid {want.qid} {req.method}: TCP reply "
+        f"{reply['pids']} {reply['scores']} != in process "
+        f"{want.pids.tolist()} {want.scores.tolist()}; served alone "
+        f"{alone.pids.tolist()} {alone.scores.tolist()}: {verdict}")
+
+
+def check_admin(conn: Conn, port: int) -> None:
+    """The admin lines' replies on a frozen index, the JAX package's."""
+    h = conn.ask(b'{"op": "health"}\n')
+    if not h.get("ok") or h["health"]["port"] != port:
+        raise RuntimeError(f"health over TCP: {h}")
+    want = {b'{"op": "live_stats"}\n': {"ok": True, "live": None},
+            b'{"op": "upsert", "doc_emb": [[0.5, 0.5]]}\n':
+                {"error": LIVE_OFF},
+            b'{"op": "delete", "pid": 3}\n': {"error": LIVE_OFF},
+            b'{"op": "compact"}\n': {"error": LIVE_OFF},
+            b'{"op": "nope", "qid": 7}\n':
+                {"error": "unknown op 'nope'", "qid": 7}}
+    for line, reply in want.items():
+        got = conn.ask(line)
+        if got != reply:
+            raise RuntimeError(f"admin line {line!r}: {got} != {reply}")
+
+
+def live_threads(prefixes=("pipe-", "worker-", "sigterm-drain",
+                           "tcp-")) -> list:
+    """Threads of the server, its executors, its drain, its front and
+    its clients (connection handlers included) that outlive a bounded
+    join."""
+    left = [t for t in threading.enumerate()
+            if t.name.startswith(prefixes)
+            or "process_request_thread" in t.name]
+    for t in left:
+        t.join(timeout=60)
+    return [t.name for t in left if t.is_alive()]
+
+
+def tcp_run(retriever, warm, reqs, lines, s: Shapes, label: str,
+            depth: int, workers: str, drain: str, counted: dict) -> dict:
+    """One server configuration behind the TCP front (see
+    :func:`tcp_front`). → its line of the ``tcp`` JSON."""
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.server import RetrievalServer, tcp_query
+
+    engine = ServeEngine(retriever, splade_backend="device",
+                         pipeline_depth=depth, pipeline_workers=workers)
+    if engine.pipelined:     # the executors start in the warm-up
+        engine.process_batch_async(fresh(warm)).result(timeout=600)
+    else:
+        engine.process_batch(fresh(warm))
+    server = RetrievalServer(engine, max_batch=s.B, batch_timeout_ms=5.0)
+    submitted, cond = [], threading.Condition()
+    submit = server.submit
+
+    def counted_submit(req):
+        fut = submit(req)
+        with cond:
+            submitted.append(fut)
+            cond.notify_all()
+        return fut
+
+    server.submit = counted_submit
+    server.start()
+    tcp = server.serve_tcp("127.0.0.1", 0)
+    port = server.tcp_port
+    serving = threading.Thread(target=tcp.serve_forever, name="tcp-serve",
+                               daemon=True)
+    serving.start()
+    conns, old_handler = [], None
+    line = {"label": label, "depth": depth, "workers": workers,
+            "drain": drain, "clients": TCP_CLIENTS, "turns": []}
+    try:
+        conns = [Conn(port) for _ in range(TCP_CLIENTS)]
+        by_qid = {r.qid: r for r in reqs}
+        want = None
+        for turn in TCP_TURNS:
+            reset_counts(retriever, counted)
+            batches = server.health()["batches"]
+            if turn == "tcp":
+                got, lat, wall = closed_loop(
+                    [c.ask for c in conns],
+                    [(r.qid, ln) for r, ln in zip(reqs, lines)])
+            else:
+                got, lat, wall = closed_loop(
+                    [lambda r: server.submit(fresh([r])[0]).result(
+                        timeout=600)] * TCP_CLIENTS,
+                    [(r.qid, r) for r in reqs])
+            launches = read_counts(counted)
+            what = f"{label} {turn}"
+            check_launches(what, launches, DOOR_KERNELS)
+            if want is None:
+                want = got
+            for qid, ans in got.items():
+                if turn == "tcp":
+                    hold_reply(what, ans, want[qid], engine, by_qid[qid])
+                else:
+                    same_bits([want[qid]], [ans], what)
+            lat = np.array(lat)
+            # from submit to the answer, as the server measures it
+            served = np.array([a["latency"] if turn == "tcp" else a.latency
+                               for a in got.values()]) * 1e3
+            health = server.health()
+            line["turns"].append({
+                "turn": turn, "requests": len(got), "qps": len(got) / wall,
+                "p50_ms": float(np.percentile(lat, 50)),
+                "p99_ms": float(np.percentile(lat, 99)),
+                "server_p50_ms": float(np.percentile(served, 50)),
+                "server_p99_ms": float(np.percentile(served, 99)),
+                "batches": health["batches"] - batches,
+                "stage_wall_s": {n: r["wall_s"]
+                                 for n, r in health["stages"].items()},
+                "launches": launches})
+            log(f"{what}: {len(got)} requests from {TCP_CLIENTS} clients "
+                f"at {len(got) / wall:.1f} QPS, p50 "
+                f"{np.percentile(lat, 50):.2f} ms, p99 "
+                f"{np.percentile(lat, 99):.2f} ms; launches {launches}; "
+                "every answer equal to the first in-process turn's")
+        check_admin(conns[0], port)
+        for i in TCP_ONCE:
+            reply = tcp_query("127.0.0.1", port, json.loads(lines[i]))
+            hold_reply(f"{label} one-shot", reply, want[reqs[i].qid],
+                       engine, reqs[i])
+        log(f"{label}: admin lines as on a frozen index, health.port "
+            f"{port}; {len(TCP_ONCE)} one-shot tcp_query replies equal")
+
+        # the drain: TCP_DRAIN requests on connections of their own, the
+        # drain started once every one of them is submitted
+        half = TCP_DRAIN // 2
+        idx = list(range(half)) + list(range(len(reqs) - half, len(reqs)))
+        drain_conns = [Conn(port) for _ in idx]
+        conns += drain_conns
+        replies = [None] * len(idx)
+        base = len(submitted)
+
+        def ask(j):
+            replies[j] = drain_conns[j].ask(lines[idx[j]])
+
+        askers = [threading.Thread(target=ask, args=(j,),
+                                   name=f"tcp-drain-client-{j}",
+                                   daemon=True) for j in range(len(idx))]
+        for t in askers:
+            t.start()
+        with cond:
+            if not cond.wait_for(lambda: len(submitted) - base == len(idx),
+                                 600):
+                raise RuntimeError(f"{label}: drain requests not submitted")
+            in_flight = sum(not f.done() for f in submitted[base:])
+        if not in_flight:
+            raise RuntimeError(f"{label}: every drain request was answered "
+                               "before the drain started")
+        t0 = time.perf_counter()
+        if drain == "sigterm":
+            old_handler = server.install_sigterm_handler()
+            os.kill(os.getpid(), signal.SIGTERM)
+        else:
+            server.shutdown_gracefully()
+        for t in askers:
+            t.join(timeout=600)
+        serving.join(timeout=600)
+        for t in threading.enumerate():
+            if t.name == "sigterm-drain":
+                t.join(timeout=600)
+        drain_s = time.perf_counter() - t0
+        if serving.is_alive():
+            raise RuntimeError(f"{label}: serve_forever did not return")
+        for j, i in enumerate(idx):
+            hold_reply(f"{label} drain", replies[j] or {}, want[reqs[i].qid],
+                       engine, reqs[i])
+        health = server.health()
+        if health["workers"] or health["failed"]:
+            raise RuntimeError(f"{label}: after the drain: {health}")
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=10).close()
+            raise RuntimeError(f"{label}: the port takes connections after "
+                               "the drain")
+        except ConnectionRefusedError:
+            pass
+        line.update(in_flight_at_drain=in_flight, drain_s=drain_s)
+        log(f"{label}: drain by {drain} with {in_flight} of {len(idx)} "
+            f"requests in flight: every one answered, in {drain_s:.3f} s; "
+            "serve_forever returned, 0 workers, new connections refused")
+    finally:
+        if old_handler is not None:
+            signal.signal(signal.SIGTERM, old_handler)
+        for c in conns:
+            c.close()
+        server.shutdown_gracefully()
+        serving.join(timeout=60)
+    left = live_threads()
+    if left:
+        raise RuntimeError(f"{label}: threads left running: {left}")
+    return line
+
+
+def tcp_front(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
+              device) -> tuple:
+    """Phase 4e (see the module docstring). → (the ``tcp`` line's
+    figures, {run label: launches of its first TCP turn})."""
+    counted = counted_kernels()
+    reqs = (make_requests(rng, s, topics, s.n_requests)
+            + colbert_requests(rng, s, min(32, s.n_requests), qid0=1000))
+    warm = (make_requests(rng, s, topics, 6, qid0=60_000)
+            + colbert_requests(rng, s, 4, qid0=60_100))
+    from repro_torch.serving.server import wire_request
+
+    lines = [wire_line(r) for r in reqs]
+    t0 = time.perf_counter()     # the handler's parse: the same requests
+    reqs = [wire_request(json.loads(ln)) for ln in lines]
+    parse_ms = (time.perf_counter() - t0) * 1e3 / len(lines)
+    n_splade = s.n_requests
+    out = {"requests": len(reqs), "splade_methods": n_splade,
+           "colbert": len(reqs) - n_splade, "max_batch": s.B,
+           "bytes_per_line": {
+               "splade_methods": float(np.mean(
+                   [len(ln) for ln in lines[:n_splade]])),
+               "colbert": float(np.mean(
+                   [len(ln) for ln in lines[n_splade:]]))},
+           "parse_ms_per_request": parse_ms, "runs": []}
+    retriever = make_retriever(path, device)
+    launches = {}
+    for label, depth, workers, drain in TCP_RUNS:
+        line = tcp_run(retriever, warm, reqs, lines, s, label, depth,
+                       workers, drain, counted)
+        out["runs"].append(line)
+        launches[label] = next(t["launches"] for t in line["turns"]
+                               if t["turn"] == "tcp")
+    log(f"tcp: {out['bytes_per_line']} bytes a line, json.loads + "
+        f"np.asarray {parse_ms:.3f} ms a request on the host")
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 3b: the index build on the card
 # ---------------------------------------------------------------------------
 
@@ -2402,7 +2768,7 @@ SOURCES = {
 
 def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
                    ctimes: dict, err: dict, s: Shapes, piped: dict,
-                   built: dict) -> list:
+                   built: dict, tcp: dict) -> list:
     """The ``{"kernels": [...]}`` line's entries: one per main path and
     kernel, with that path's launches from its own run (counts set to 0
     just before it, read just after) and the kernel timed at that path's
@@ -2413,7 +2779,9 @@ def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
     serve shape; phase 4d's first single-worker run of each workload
     with the kernels of its path; phase 3b's serve on the card-built
     index (``built``: its launches) with the tail's two kernels, timed
-    at the serve shape."""
+    at the serve shape; phase 4e's first TCP turn of each run (``tcp``:
+    label → its launches) with the three kernels of its path, timed at
+    the serve shape."""
     paths = [("serve_device", served["device"][0]["launches"], kname,
               times[kname]["batch"], err[kname], s.C) for kname in SOURCES]
     paths += [("front_door", door, kname, times[kname]["batch"], err[kname],
@@ -2436,6 +2804,9 @@ def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
     paths += [("built_index", built, kname, times[kname]["batch"],
                err[kname], s.C) for kname in ("fused_rerank",
                                               "decompress_maxsim")]
+    paths += [(label, launches, kname, times[kname]["batch"], err[kname],
+               s.C) for label, launches in tcp.items()
+              for kname in DOOR_KERNELS]
     out = []
     for path_name, launches, kname, t, max_err, C in paths:
         src, replaces = SOURCES[kname]
@@ -2517,6 +2888,10 @@ def main(argv=None) -> int:
                           device)
         log(f"phase 4d pipelined: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+        tcp, tcp_launches = tcp_front(sub_rng(args.seed, "tcp"), s, path,
+                                      topics, device)
+        log(f"phase 4e tcp front: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         times = time_kernels(rng, s, device, peaks, path, topics, args.seed)
         ctimes = time_colbert(sub_rng(args.seed, "colbert timing"), s,
                               device, peaks, path)
@@ -2544,7 +2919,8 @@ def main(argv=None) -> int:
                 else dict(dataclasses.asdict(s), B=1),
                 "card": name, "power_limit": limit}), flush=True)
     kernels = kernel_entries(served, colbert, door_launches, times, ctimes,
-                             err, s, piped, built["serve"]["launches"])
+                             err, s, piped, built["serve"]["launches"],
+                             tcp_launches)
     print(json.dumps({"phase": "build", **built, "card": name,
                       "power_limit": limit}), flush=True)
     print(json.dumps({"phase": "stage1_breakdown", **times["stage1"],
@@ -2562,6 +2938,8 @@ def main(argv=None) -> int:
     print(json.dumps({"phase": "front_door", **door, "card": name,
                       "power_limit": limit}), flush=True)
     print(json.dumps({"phase": "pipelined", "runs": piped, "card": name,
+                      "power_limit": limit}), flush=True)
+    print(json.dumps({"phase": "tcp", **tcp, "card": name,
                       "power_limit": limit}), flush=True)
     log(f"chip_smoke wall, build included: "
         f"{time.perf_counter() - t_all:.1f} s")

@@ -51,6 +51,8 @@ from repro_torch.serving.pipeline import (
 SPLADE_BACKENDS = ("host", "device")
 RERANK_BACKENDS = ("fused", "split")
 METHODS = ("colbert", "splade", "rerank", "hybrid")
+# the JAX package's refusal of a mutation on a frozen index
+LIVE_NOT_ENABLED = "live index not enabled (enable_live / --live)"
 
 
 def check_splade_backend(backend: str) -> str:
@@ -152,6 +154,23 @@ class MultiStageRetriever:
         if caches is not None:
             caches.purge_stale(self.index_generation)
         return self.index_generation
+
+    # ------------------------------------------------------------------
+    # live index: not ported, so every index is frozen; each mutation
+    # refuses and the statistics are None, as the JAX package's are on one
+    # ------------------------------------------------------------------
+    def live_upsert(self, doc_emb, term_ids, term_weights,
+                    doc_len=None) -> int:
+        raise RuntimeError(LIVE_NOT_ENABLED)
+
+    def live_delete(self, gpid: int) -> bool:
+        raise RuntimeError(LIVE_NOT_ENABLED)
+
+    def compact_live(self):
+        raise RuntimeError(LIVE_NOT_ENABLED)
+
+    def live_stats(self):
+        return None
 
     def _plaid_salt(self) -> str:
         sp = self.searcher.params

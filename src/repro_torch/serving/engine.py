@@ -211,6 +211,23 @@ class ServeEngine:
                 "queues": {m: px.queue_depths()
                            for m, px in pipes.items()}}
 
+    # -- live index ------------------------------------------------------
+    def live_upsert(self, doc_emb, term_ids, term_weights,
+                    doc_len=None) -> int:
+        """Append one document to the live index → its global pid. The
+        retriever refuses while its index is frozen."""
+        return self.retriever.live_upsert(doc_emb, term_ids, term_weights,
+                                          doc_len)
+
+    def live_delete(self, pid: int) -> bool:
+        return self.retriever.live_delete(pid)
+
+    def live_compact(self):
+        return self.retriever.compact_live()
+
+    def live_stats(self):
+        return self.retriever.live_stats()
+
     # -- request context & caching ---------------------------------------
     def context_for(self, req: Request) -> RequestContext:
         """Resolve a request into its typed lifecycle record.

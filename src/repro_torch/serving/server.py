@@ -1,5 +1,5 @@
 """Concurrent serving: bounded queue + worker pool with cross-query
-micro-batching.
+micro-batching, plus a TCP front.
 
 Clients submit queries that are queued and served by ``n_threads``
 workers. Latency is measured from arrival (enqueue) to completion, so
@@ -27,15 +27,28 @@ Fault tolerance: ``drain()`` completes queued and in-flight work; a
 failing batch is retried request by request so one poisoned query
 cannot fail its co-batched neighbours; ``stop()`` fails still-queued
 futures instead of leaving clients waiting forever.
+
+TCP front: ``serve_tcp`` attaches a newline-delimited JSON front
+(:class:`TCPRetrievalServer`; one reply line per request line, on one
+connection or many) with admin lines (``op``) beside the queries, and
+``shutdown_gracefully`` (also the SIGTERM path) stops accepting
+connections, drains and stops. The wire format is the JAX package's
+line for line.
 """
 
 from __future__ import annotations
 
+import json
 import queue
+import signal
+import socket
+import socketserver
 import threading
 import time
 from concurrent.futures import Future
 from typing import Optional
+
+import numpy as np
 
 from repro_torch.serving.admission import AdmissionController, RequestShed
 from repro_torch.serving.context import ADMIT_DEGRADED, ADMIT_SHED
@@ -83,6 +96,10 @@ class RetrievalServer:
         self._lock = threading.Lock()
         self._retry_cond = threading.Condition()
         self._retries = 0                # pipelined failure retries live
+        self.tcp: Optional["TCPRetrievalServer"] = None
+        self.tcp_port: Optional[int] = None
+        self._shutdown_once = threading.Lock()
+        self._shut_down = False
 
     # -- lifecycle -------------------------------------------------------
     def start(self):
@@ -312,6 +329,48 @@ class RetrievalServer:
             return self._retry_cond.wait_for(lambda: self._retries == 0,
                                              left())
 
+    # -- TCP front / graceful shutdown ------------------------------------
+    def serve_tcp(self, host: str = "0.0.0.0", port: int = 0
+                  ) -> "TCPRetrievalServer":
+        """Attach the TCP front. ``port=0`` binds an ephemeral port (the
+        kernel picks a free one) and the *real* port is reported in
+        :attr:`tcp_port`, ``health()`` and on stdout. The caller runs
+        ``.serve_forever()`` (or puts it on a thread)."""
+        self.tcp = TCPRetrievalServer((host, port), self)
+        self.tcp_port = self.tcp.server_address[1]
+        print(f"RETRIEVAL_PORT={self.tcp_port}", flush=True)
+        return self.tcp
+
+    def shutdown_gracefully(self):
+        """Drain, then stop — the SIGTERM path. Stops accepting new TCP
+        connections and closes the listening socket first, completes
+        everything queued (batches in flight in the pipelines and
+        failure retries too), then stops the workers. Idempotent, and
+        the lock is held for the *whole* drain: a second caller blocks
+        until the drain is done instead of returning while batches are
+        still in flight. ``stop()``, not ``close()``: the engine is the
+        caller's."""
+        with self._shutdown_once:
+            if self._shut_down:
+                return
+            if self.tcp is not None:
+                self.tcp.stop_accepting()
+            self.drain()
+            self.stop()
+            self._shut_down = True
+
+    def install_sigterm_handler(self):
+        """Route SIGTERM to :meth:`shutdown_gracefully` on a thread of
+        its own, ``sigterm-drain`` (``TCPServer.shutdown`` deadlocks if
+        called from the thread running ``serve_forever``, which is where
+        the signal may land). Returns the previous handler. Main thread
+        only: signal registration is a CPython restriction."""
+        def handler(signum, frame):
+            threading.Thread(target=self.shutdown_gracefully,
+                             name="sigterm-drain", daemon=True).start()
+
+        return signal.signal(signal.SIGTERM, handler)
+
     # -- client API -------------------------------------------------------
     def submit(self, req: Request) -> Future:
         """Front door: exact-cache fast path → admission → queue.
@@ -377,7 +436,9 @@ class RetrievalServer:
              "workers": sum(t.is_alive() for t in self.workers),
              "max_batch": self.max_batch,
              "batch_cap": cap,
-             "ewma_latency_ms": ewma}
+             "ewma_latency_ms": ewma,
+             "port": self.tcp_port,
+             "n_shards": 1}           # one index until sharding is ported
         retr = getattr(self.engine, "retriever", None)
         if retr is not None:
             snap = retr.pipeline_stats.snapshot()
@@ -398,3 +459,136 @@ class RetrievalServer:
         if getattr(self.engine, "pipelined", False):
             h["pipeline"] = self.engine.pipeline_health()
         return h
+
+
+# ---------------------------------------------------------------------------
+# The TCP front: newline-delimited JSON, one reply line per request line.
+# ---------------------------------------------------------------------------
+
+def wire_request(msg: dict) -> Request:
+    """The request a query line asks for: ``method`` defaults to
+    ``hybrid`` and ``k`` to 10, absent terms are empty, and the wire
+    carries no α (the retriever's applies)."""
+    return Request(
+        qid=msg["qid"], method=msg.get("method", "hybrid"),
+        q_emb=np.asarray(msg["q_emb"], np.float32)
+        if "q_emb" in msg else None,
+        term_ids=np.asarray(msg.get("term_ids", []), np.int32),
+        term_weights=np.asarray(msg.get("term_weights", []), np.float32),
+        k=msg.get("k", 10))
+
+
+class _Handler(socketserver.StreamRequestHandler):
+    def _admin(self, msg, op):
+        """Control-plane ops share the query socket, dispatched on an
+        explicit ``op`` key so that plain query lines stay
+        wire-compatible: live mutations (upsert/delete), compaction,
+        and health/stats. Mutations go through the engine's
+        pass-throughs; on a frozen index they fail cleanly, as an
+        ``error`` reply, not a dropped connection."""
+        rs = self.server.retrieval
+        engine = rs.engine
+        if op == "upsert":
+            pid = engine.live_upsert(
+                np.asarray(msg["doc_emb"], np.float32),
+                np.asarray(msg.get("term_ids", []), np.int32),
+                np.asarray(msg.get("term_weights", []), np.float32),
+                msg.get("doc_len"))
+            return {"ok": True, "pid": int(pid)}
+        if op == "delete":
+            return {"ok": bool(engine.live_delete(int(msg["pid"])))}
+        if op == "compact":
+            out = engine.live_compact()
+            return {"ok": True,
+                    "compacted": 0 if not out else int(out["compacted"])}
+        if op == "live_stats":
+            return {"ok": True, "live": engine.live_stats()}
+        if op == "health":
+            return {"ok": True, "health": rs.health()}
+        raise ValueError(f"unknown op {op!r}")
+
+    def handle(self):
+        for line in self.rfile:
+            qid = None
+            try:
+                msg = json.loads(line)
+                qid = msg.get("qid")
+                op = msg.get("op")
+                if op is not None:
+                    out = self._admin(msg, op)
+                    self.wfile.write((json.dumps(out) + "\n").encode())
+                    self.wfile.flush()
+                    continue
+                req = wire_request(msg)
+                res = self.server.retrieval.submit(req).result(timeout=60)
+                out = {"qid": res.qid, "pids": res.pids.tolist(),
+                       "scores": [float(s) for s in res.scores],
+                       "latency": res.latency}
+                if res.cache_hit:
+                    out["cache_hit"] = True
+                if res.degraded:
+                    # a downgraded answer: the reason code says that
+                    # admission control ran the cheap plan. No shard is
+                    # ever missing from an unsharded index, but the key
+                    # stays, so that the reply is the JAX package's
+                    out["degraded"] = True
+                    out["degrade_reason"] = res.degrade_reason
+                    out["missing_shards"] = []
+            except RequestShed as e:
+                out = {"error": str(e), "shed": True, "reason": e.reason}
+                if qid is not None:
+                    out["qid"] = qid
+            except Exception as e:
+                out = {"error": str(e)}
+                if qid is not None:
+                    out["qid"] = qid
+            self.wfile.write((json.dumps(out) + "\n").encode())
+            self.wfile.flush()
+
+
+class TCPRetrievalServer(socketserver.ThreadingTCPServer):
+    allow_reuse_address = True
+    daemon_threads = True
+
+    def __init__(self, addr, retrieval_server: RetrievalServer):
+        super().__init__(addr, _Handler)
+        self.retrieval = retrieval_server
+        self._state = threading.Lock()
+        self._serving = False            # serve_forever was entered
+        self._stopped = False
+
+    def serve_forever(self, poll_interval: float = 0.5):
+        with self._state:
+            if self._stopped:
+                return
+            self._serving = True
+        super().serve_forever(poll_interval)
+
+    def stop_accepting(self):
+        """End ``serve_forever`` if it ever started and close the
+        listening socket; a new connection is then refused. Idempotent.
+        ``shutdown()`` alone waits forever on a front that was never
+        served (it waits for ``serve_forever`` to acknowledge), so it is
+        called only on one that was. Connections already open keep
+        their handler threads until the client closes them."""
+        with self._state:
+            if self._stopped:
+                return
+            self._stopped = True
+            serving = self._serving
+        if serving:
+            self.shutdown()
+        self.server_close()
+
+
+def tcp_query(host: str, port: int, payload: dict) -> dict:
+    """Send one request line on a connection of its own; → the reply."""
+    with socket.create_connection((host, port), timeout=60) as s:
+        s.sendall((json.dumps(payload) + "\n").encode())
+        buf = b""
+        while not buf.endswith(b"\n"):
+            chunk = s.recv(65536)
+            if not chunk:
+                break
+            buf += chunk
+    return json.loads(buf)

@@ -56,6 +56,8 @@ from repro_torch.serving.context import CacheHierarchy
 from repro_torch.serving.engine import Request, ServeEngine
 from repro_torch.serving.pipeline import (DEVICE, HOST, CandidateBatch,
                                           PipelineExecutor, Stage, StagePlan)
+from repro_torch.serving.server import (RetrievalServer, tcp_query,
+                                        wire_request)
 from repro_torch.testing import (REF_MARGIN, assert_colbert_match,
                                  assert_topk_match)
 
@@ -797,6 +799,92 @@ def test_pipelined_equals_synchronous_on_card(cuda, index_dir, resident,
         np.testing.assert_array_equal(w.pids, g.pids)
         np.testing.assert_array_equal(w.scores.view(np.uint32),
                                       g.scores.view(np.uint32))
+
+
+def _launch_counts():
+    return (fused_rerank_topk_batch.launches,
+            decompress_maxsim_scores_batch.launches,
+            splade_row_topk_batch.launches)
+
+
+def test_tcp_front_on_card(cuda, index_dir):
+    """A mixed batch of the four methods over the TCP front, queued
+    before the server starts (so it is one micro-batch): every reply
+    equals the engine's in-process answer on the same batch bit for bit,
+    the batch launches its path's kernels, and an exact-cache hit over
+    TCP (answered on the connection's handler thread) launches none."""
+    rng = np.random.default_rng(9)
+    retr = MultiStageRetriever(
+        SpladeIndex.load(index_dir / "splade"),
+        PLAIDSearcher(ColBERTIndex(index_dir / "colbert"),
+                      PlaidParams(nprobe=4, candidate_cap=96, ndocs=40,
+                                  k=30), device=cuda),
+        MultiStageParams(first_k=60, k=30), device=cuda)
+    engine = ServeEngine(retr, splade_backend="device",
+                         caches=CacheHierarchy(64, 64))
+    plain = ServeEngine(retr)
+    msgs = [{"qid": i, "method": METHODS[i % 4], "k": (10, 20)[i % 2],
+             "q_emb": rng.normal(size=(int(rng.integers(4, 33)), 64))
+             .astype(np.float32).tolist(),
+             "term_ids": rng.integers(0, 500, 8).tolist(),
+             "term_weights": rng.uniform(0.1, 2, 8).astype(np.float32)
+             .tolist()} for i in range(8)]
+    reqs = [wire_request(m) for m in msgs]
+    server = RetrievalServer(engine, max_batch=8, batch_timeout_ms=50.0)
+    submitted = threading.Condition()
+    count = [0]
+    submit = server.submit
+
+    def counted(req):
+        fut = submit(req)
+        with submitted:
+            count[0] += 1
+            submitted.notify_all()
+        return fut
+
+    server.submit = counted
+    tcp = server.serve_tcp("127.0.0.1", 0)
+    serving = threading.Thread(target=tcp.serve_forever, name="tcp-serve",
+                               daemon=True)
+    serving.start()
+    replies, clients = {}, []
+    try:
+        for i, m in enumerate(msgs):      # queued in order, one by one
+            t = threading.Thread(
+                target=lambda m=m: replies.__setitem__(
+                    m["qid"], tcp_query("127.0.0.1", server.tcp_port, m)),
+                daemon=True)
+            clients.append(t)
+            t.start()
+            with submitted:
+                assert submitted.wait_for(lambda: count[0] == i + 1,
+                                          TIMEOUT)
+        before = _launch_counts()
+        server.start()
+        for t in clients:
+            t.join(timeout=TIMEOUT)
+        after = _launch_counts()
+        hit = tcp_query("127.0.0.1", server.tcp_port, msgs[2])
+        assert _launch_counts() == after
+    finally:
+        server.shutdown_gracefully()
+        serving.join(timeout=TIMEOUT)
+    assert not serving.is_alive()
+    assert not any(t.is_alive() for t in clients)
+    # one batch: fused_rerank for rerank and colbert, decompress_maxsim
+    # for hybrid, the SPLADE top-k for the three SPLADE methods
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 1, 3)
+    want = plain.process_batch(reqs)
+    for w in want:
+        got = replies[w.qid]
+        assert "error" not in got and "cache_hit" not in got, got
+        assert got["pids"] == w.pids.tolist()
+        np.testing.assert_array_equal(
+            np.asarray(got["scores"], np.float32).view(np.uint32),
+            w.scores.view(np.uint32))
+    assert hit["cache_hit"] is True
+    assert (hit["pids"], hit["scores"]) == (replies[2]["pids"],
+                                            replies[2]["scores"])
 
 
 INDEX_FILES = ("residuals.bin", "codes.bin", "centroids.npy",
