@@ -143,6 +143,39 @@ Phases, in order; any failure raises and the script exits non-zero:
              to the answer as the server measures it), its batches and
              stage walls, bytes a line and the host's ``json.loads`` +
              ``np.asarray`` time a request go on a ``tcp`` line;
+4f. live   — the live index (``enable_live``). (a) On phase 3b's corpus
+             at the serve widths, the base a pinned card build of all
+             but its last 256 docs (3b (a)'s K=16,384 geometry), first_k
+             =200, the device stage 1, the fused tail, PLAID at nprobe=4,
+             ndocs=256 with a candidate cap above every corpus size (it
+             never binds): a clean live retriever equals the frozen one
+             bit for bit, with the same launches. Round 1 upserts the
+             256 docs and tombstones 64 base and 8 delta pids; round 2
+             updates 128 docs (tombstones each, upserts a changed copy)
+             and tombstones 8 of those. In each round the corpus's 256
+             queries in batches of 32, the four methods at k 10 and 100,
+             dirty and after ``compact_live()``, equal a pinned card
+             rebuild of the survivors bit for bit (pids mapped by
+             ``map_global_to_ref``); the delta's codes and residual rows
+             equal the rebuild's rows (0 differ); each dirty batch
+             launches decompress_maxsim (the splade method nothing) and
+             no other kernel. (d) A live ``RetrievalServer`` over TCP on
+             a copy of (a)'s base: every upsert, delete, compact,
+             ``live_stats`` and ``health`` reply equal to the same call
+             on an in-process twin; the query replies after each
+             mutation equal to their in-process answers bit for bit.
+             (b) Phase 3's index: 64 mixed requests at max_batch=32
+             clean, then after 256 upserts of unit-random documents and
+             64 deletes, every answer held to a ``device="cpu"`` live
+             engine fed the same trace; QPS, p50/p99, upsert ms. (c) A
+             compaction under 3 reader threads serving 32 SPLADE-method
+             requests (every answer unchanged, every thread joined; the
+             readers' calls before, during and over the swap), then 64
+             more upserts and a compaction alone; each compaction's
+             steps (the concatenation, the pool's write, the IVF, the
+             SPLADE CSR, the load, the gate, the swap) and the device
+             memory after each (flat). The figures go on a ``live``
+             line;
 5. time    — time each kernel with CUDA events at the serve shapes, and
              each at B=1, in an eager loop (the rerank tail's two
              kernels, MaxSim, the SPLADE kernel's two entry points and
@@ -163,8 +196,10 @@ colbert run with its tail's kernel, and the front door's cold mixed
 batch (``front_door``) with the three kernels of its path, phase 4d's
 first single-worker runs (``pipelined_splade``, ``pipelined_colbert``,
 ``pipelined_colbert_resident``), phase 3b's serve on the card-built
-index (``built_index``), and phase 4e's first TCP turn at each depth
-(``tcp``, ``tcp_pipelined``) with the three kernels of its path;
+index (``built_index``), phase 4e's first TCP turn at each depth
+(``tcp``, ``tcp_pipelined``) with the three kernels of its path, and
+phase 4f (b)'s dirty run (``live``) with decompress_maxsim, the only
+kernel of the overlay path;
 ``launches`` is that path's own run's count, and the times are at that path's candidate width (``C``).
 
 Arithmetic is IEEE fp32: TF32 is switched off for matmuls and cuDNN.
@@ -179,6 +214,7 @@ import dataclasses
 import json
 import os
 import pathlib
+import shutil
 import signal
 import socket
 import subprocess
@@ -1655,12 +1691,12 @@ class Conn:
     ``socketserver``'s backlog of 5, and a burst of connections beyond
     it has its SYNs dropped and retried after a second."""
 
-    def __init__(self, port: int):
+    def __init__(self, port: int, live: bool = False):
         self.sock = socket.create_connection(("127.0.0.1", port),
                                              timeout=600)
         self.rfile = self.sock.makefile("rb")
         reply = self.ask(b'{"op": "live_stats"}\n')
-        if reply != {"ok": True, "live": None}:
+        if not reply.get("ok") or isinstance(reply["live"], dict) != live:
             raise RuntimeError(f"live_stats over TCP: {reply}")
 
     def ask(self, line: bytes) -> dict:
@@ -1953,6 +1989,585 @@ def tcp_front(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
                                if t["turn"] == "tcp")
     log(f"tcp: {out['bytes_per_line']} bytes a line, json.loads + "
         f"np.asarray {parse_ms:.3f} ms a request on the host")
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: the live index
+# ---------------------------------------------------------------------------
+
+# (a): phase 3b's corpus; its last LIVE_HOLD docs are upserted into a
+# pinned base of the rest, then round 1 tombstones LIVE_TOMB (base,
+# delta) pids; round 2 updates LIVE_UPDATES docs (tombstone, upsert a
+# changed copy) and tombstones LIVE_TOMB[1] of its own upserts
+LIVE_HOLD = 256
+LIVE_TOMB = (64, 8)
+LIVE_UPDATES = 128
+LIVE_KS = (10, 100)
+# (b): phase 3's index, LIVE_UPSERTS unit-random documents upserted and
+# LIVE_DELETES pids tombstoned; LIVE_MORE more upserts before the second
+# compaction
+LIVE_UPSERTS, LIVE_DELETES, LIVE_MORE = 256, 64, 64
+LIVE_READERS = 3
+
+
+def live_parity_retriever(path: pathlib.Path, device, cap: int):
+    """A retriever at the serve widths over ``path``'s ``colbert`` and
+    ``splade``: first_k=200, the device stage 1, the fused tail, PLAID at
+    serve_plaid's nprobe and ndocs with the candidate cap ``cap`` (at or
+    above every corpus size here, so that it never binds)."""
+    from repro_torch.core.multistage import (MultiStageParams,
+                                             MultiStageRetriever)
+    from repro_torch.core.plaid import PLAIDSearcher, PlaidParams
+    from repro_torch.index.builder import ColBERTIndex
+    from repro_torch.index.splade_index import SpladeIndex
+    searcher = PLAIDSearcher(
+        ColBERTIndex(path / "colbert"),
+        PlaidParams(nprobe=FULL.nprobe, candidate_cap=cap, ndocs=FULL.ndocs,
+                    k=100), device=device)
+    if searcher.index.n_docs >= cap:
+        raise AssertionError(f"the candidate cap {cap} could bind on "
+                             f"{searcher.index.n_docs} docs")
+    return MultiStageRetriever(
+        SpladeIndex.load(path / "splade", mmap=True), searcher,
+        MultiStageParams(first_k=FULL.C, k=100, splade_backend="device",
+                         rerank_backend="fused"), device=device)
+
+
+def live_answers(retr, corpus, counted: dict, dirty: bool) -> tuple:
+    """The corpus's queries in batches of ``FULL.B`` with each method at
+    each k of ``LIVE_KS`` → ({(method, k): (pids, scores)}, launches).
+    A dirty live index's batches launch decompress_maxsim (the SPLADE
+    method none) and no other kernel."""
+    out, total = {}, dict.fromkeys(counted, 0)
+    n = len(corpus["q_embs"])
+    for method in DOOR_METHODS:
+        for k in LIVE_KS:
+            pids, scores = [], []
+            for lo in range(0, n, FULL.B):
+                reset_counts(retr, counted)
+                p, sc = retr.search_batch(
+                    method, q_embs=list(corpus["q_embs"][lo:lo + FULL.B]),
+                    term_ids=list(corpus["q_term_ids"][lo:lo + FULL.B]),
+                    term_weights=list(
+                        corpus["q_term_weights"][lo:lo + FULL.B]), k=k)
+                got = read_counts(counted)
+                if dirty:
+                    others = any(c for name, c in got.items()
+                                 if name != "decompress_maxsim")
+                    if others or (method != "splade") != bool(
+                            got["decompress_maxsim"]):
+                        raise RuntimeError(f"live {method} k={k}: a dirty "
+                                           f"batch launched {got}")
+                total = {nm: total[nm] + c for nm, c in got.items()}
+                pids.append(p)
+                scores.append(sc)
+            out[(method, k)] = (np.concatenate(pids), np.concatenate(scores))
+    return out, total
+
+
+def same_answers(got: dict, want: dict, what: str, survivors=None) -> None:
+    """Every answer of ``got`` equals ``want``'s bit for bit, the pids
+    mapped to the rebuild's through ``survivors`` where given."""
+    from repro_torch.index.live import map_global_to_ref
+    for key, (p, sc) in got.items():
+        if survivors is not None:
+            p = map_global_to_ref(p, survivors)
+        wp, ws = want[key]
+        bad = np.nonzero(~((p == wp).all(1) & (sc.view(np.uint32)
+                                               == ws.view(np.uint32)).all(1)))
+        if len(bad[0]):
+            b = int(bad[0][0])
+            raise AssertionError(
+                f"{what}: {key} differs in {len(bad[0])} queries; query "
+                f"{b}: {p[b][:12].tolist()} {sc[b][:12].tolist()} != "
+                f"{wp[b][:12].tolist()} {ws[b][:12].tolist()}")
+
+
+def rebuild_oracle(root: pathlib.Path, docs: dict, survivors: np.ndarray,
+                   geometry: pathlib.Path, quantum: float, vocab: int,
+                   device, cap: int) -> tuple:
+    """A pinned card rebuild of the surviving docs (``docs``: the
+    corpus's arrays indexed by global pid) → (its retriever, the build's
+    seconds)."""
+    from repro_torch.index.live import build_reference_indexes
+    pin = {n: np.load(geometry / f"{n}.npy")
+           for n in ("centroids", "bucket_cutoffs", "bucket_weights")}
+    t0 = time.perf_counter()
+    build_reference_indexes(
+        root / "colbert", root / "splade", docs["doc_embs"][survivors],
+        docs["doc_lens"][survivors], docs["doc_term_ids"][survivors],
+        docs["doc_term_weights"][survivors], vocab, nbits=4,
+        quantum=quantum, device=device, **pin)
+    return live_parity_retriever(root, device, cap), time.perf_counter() - t0
+
+
+def delta_code_diffs(live, oracle, survivors: np.ndarray) -> dict:
+    """The delta docs' centroid ids and packed residuals against the
+    rebuild's rows of the same docs (the surviving ones) → counts."""
+    idx = oracle.searcher.index
+    codes, res = np.asarray(idx.store.codes), np.asarray(idx.store.residuals)
+    out = {"docs": 0, "tokens": 0, "codes_differ": 0, "residual_rows_differ": 0}
+    for j in range(live.n_delta):
+        g = live.base_n + j
+        r = int(np.searchsorted(survivors, g))
+        if r == len(survivors) or survivors[r] != g:
+            continue
+        lo, hi = idx.doc_offsets[r], idx.doc_offsets[r + 1]
+        out["docs"] += 1
+        out["tokens"] += int(hi - lo)
+        out["codes_differ"] += int((live._cids[j] != codes[lo:hi]).sum())
+        out["residual_rows_differ"] += int(
+            (live._packed[j] != res[lo:hi]).any(axis=1).sum())
+    return out
+
+
+def live_parity(rng, corpus, root: pathlib.Path, geometry: pathlib.Path,
+                device, counted: dict) -> dict:
+    """(a): live == a pinned card rebuild of the survivors, bit for bit,
+    dirty and after each of two compactions; clean live == frozen."""
+    from repro_torch.index.splade_index import build_splade_index
+    cfg = corpus["cfg"]
+    n_base = cfg.n_docs - LIVE_HOLD
+    cap = -(-(cfg.n_docs + LIVE_UPDATES + 1) // 1024) * 1024
+    pin = {n: np.load(geometry / f"{n}.npy")
+           for n in ("centroids", "bucket_cutoffs", "bucket_weights")}
+    from repro_torch.index.builder import build_colbert_index
+    t0 = time.perf_counter()
+    build_colbert_index(root / "base" / "colbert",
+                        corpus["doc_embs"][:n_base],
+                        corpus["doc_lens"][:n_base], nbits=4, device=device,
+                        **pin)
+    base_splade = build_splade_index(
+        corpus["doc_term_ids"][:n_base], corpus["doc_term_weights"][:n_base],
+        cfg.vocab, n_base)
+    base_splade.save(root / "base" / "splade")
+    out = {"base_docs": n_base, "upserted": LIVE_HOLD, "candidate_cap": cap,
+           "base_build_s": time.perf_counter() - t0, "queries":
+           len(corpus["q_embs"]), "ks": list(LIVE_KS)}
+
+    frozen_ans, frozen_l = live_answers(
+        live_parity_retriever(root / "base", device, cap), corpus, counted,
+        False)
+    retr = live_parity_retriever(root / "base", device, cap)
+    retr.enable_live()
+    clean_ans, clean_l = live_answers(retr, corpus, counted, False)
+    same_answers(clean_ans, frozen_ans, "clean live vs frozen")
+    if clean_l != frozen_l:
+        raise AssertionError(f"clean live launched {clean_l}, the frozen "
+                             f"retriever {frozen_l}")
+    out["clean_launches"] = clean_l
+    log(f"live (a): a clean live retriever == the frozen one bit for bit "
+        f"on {out['queries']} queries × 4 methods × k {LIVE_KS}; launches "
+        f"{clean_l}")
+
+    # round 1: upsert the held-out docs, tombstone base and delta pids
+    for j in range(n_base, cfg.n_docs):
+        retr.live_upsert(corpus["doc_embs"][j], corpus["doc_term_ids"][j],
+                         corpus["doc_term_weights"][j], corpus["doc_lens"][j])
+    dead = set(rng.choice(n_base, LIVE_TOMB[0], replace=False).tolist())
+    dead |= set((n_base + rng.choice(LIVE_HOLD, LIVE_TOMB[1],
+                                     replace=False)).tolist())
+    for g in sorted(dead):
+        assert retr.live_delete(g)
+    docs = {name: corpus[name] for name in ("doc_embs", "doc_lens",
+                                            "doc_term_ids",
+                                            "doc_term_weights")}
+    rounds = []
+    for rnd in (1, 2):
+        if rnd == 2:
+            # update docs: tombstone each and upsert a changed copy
+            # (its tokens moved and renormalised, its terms kept)
+            live_pids = np.setdiff1d(np.arange(retr.live.base_n
+                                               + retr.live.n_delta),
+                                     sorted(dead))
+            upd = rng.choice(live_pids, LIVE_UPDATES, replace=False)
+            first = retr.live.base_n + retr.live.n_delta
+            new = {name: arr[upd].copy() for name, arr in docs.items()}
+            new["doc_embs"] = unit(new["doc_embs"] + 0.05 * rng.normal(
+                size=new["doc_embs"].shape)).astype(np.float32)
+            for i, g in enumerate(upd.tolist()):
+                assert retr.live_delete(g)
+                dead.add(g)
+                assert retr.live_upsert(
+                    new["doc_embs"][i], new["doc_term_ids"][i],
+                    new["doc_term_weights"][i],
+                    new["doc_lens"][i]) == first + i
+            late = first + rng.choice(LIVE_UPDATES, LIVE_TOMB[1],
+                                      replace=False)
+            for g in late.tolist():
+                assert retr.live_delete(g)
+                dead.add(g)
+            docs = {name: np.concatenate([docs[name], new[name]])
+                    for name in docs}
+        n_all = len(docs["doc_lens"])
+        survivors = np.setdiff1d(np.arange(n_all), sorted(dead))
+        oracle, oracle_s = rebuild_oracle(
+            root / f"rebuild{rnd}", docs, survivors, geometry,
+            base_splade.quantum, cfg.vocab, device, cap)
+        want, _ = live_answers(oracle, corpus, counted, False)
+        diffs = delta_code_diffs(retr.live, oracle, survivors)
+        if diffs["codes_differ"] or diffs["residual_rows_differ"]:
+            raise AssertionError(f"round {rnd}: delta rows differ from the "
+                                 f"rebuild's: {diffs}")
+        t0 = time.perf_counter()
+        dirty, dirty_l = live_answers(retr, corpus, counted, True)
+        dirty_s = time.perf_counter() - t0
+        same_answers(dirty, want, f"round {rnd} dirty vs rebuild", survivors)
+        reply = retr.compact_live()
+        compacted, compacted_l = live_answers(retr, corpus, counted, True)
+        same_answers(compacted, want, f"round {rnd} compacted vs rebuild",
+                     survivors)
+        rounds.append({
+            "docs": n_all, "survivors": len(survivors),
+            "tombstones": len(dead), "rebuild_s": oracle_s,
+            "delta_rows_vs_rebuild": diffs, "dirty_launches": dirty_l,
+            "dirty_serve_s": dirty_s, "compacted_launches": compacted_l,
+            "compaction": {"compacted": reply["compacted"],
+                           "seconds": reply["seconds"]}})
+        log(f"live (a) round {rnd}: dirty and compacted answers == the "
+            f"pinned card rebuild of {len(survivors)} survivors bit for "
+            f"bit; delta rows vs rebuild {diffs}; dirty launches "
+            f"{dirty_l}; compaction {reply['seconds']}")
+    out["rounds"] = rounds
+    return out
+
+
+def reader_loop(retr, batch: dict, want, stop: threading.Event,
+                walls: list, errors: list) -> None:
+    """Serve ``batch`` until ``stop``; each answer must be ``want`` bit
+    for bit; each call's (start, wall s) goes to ``walls``."""
+    try:
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            got = retr.search_batch(**batch)
+            walls.append((t0, time.perf_counter() - t0))
+            if answer_bits(*got) != answer_bits(*want):
+                raise AssertionError("a reader's answer changed during "
+                                     "a compaction")
+    except Exception as e:              # reported on the caller
+        errors.append(e)
+
+
+class HostSteps:
+    """While in use, sums the wall seconds of the calls to each wrapped
+    function (``targets``: (owner, attribute name) pairs; a staticmethod
+    stays one) by its name."""
+
+    def __init__(self, targets):
+        self.targets, self.seconds = targets, {}
+
+    def _timed(self, name: str, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.seconds[name] = (self.seconds.get(name, 0.0)
+                                      + time.perf_counter() - t0)
+        return call
+
+    def __enter__(self):
+        self.saved = [(owner, name, vars(owner)[name])
+                      for owner, name in self.targets]
+        for owner, name, fn in self.saved:
+            if isinstance(fn, staticmethod):
+                setattr(owner, name,
+                        staticmethod(self._timed(name, fn.__func__)))
+            else:
+                setattr(owner, name, self._timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+
+def compact_measured(retr, batch: dict, device, readers: int) -> dict:
+    """(c): ``readers`` threads serve ``batch`` before, during and after
+    ``compact_live()``, every answer the one before it, each thread
+    joined with a bound. → the compaction's steps (``colbert_dir`` split
+    into the concatenation, the pool's write, the IVF's build and the
+    other files), the readers' calls before and during it and over the
+    swap, and the device memory after it, less the padded IVF the
+    readers may have made the new searcher build."""
+    import torch
+    from repro_torch.core.store import PagedStore
+    from repro_torch.index import ivf as ivf_mod
+    from repro_torch.index import live as live_mod
+    want = retr.search_batch(**batch)
+    stop, walls, errors = threading.Event(), [], []
+    threads = [threading.Thread(target=reader_loop, name=f"live-reader-{i}",
+                                args=(retr, batch, want, stop, walls,
+                                      errors), daemon=True)
+               for i in range(readers)]
+    for t in threads:
+        t.start()
+    while len(walls) < 2 * readers and not errors:     # all reading
+        stop.wait(0.01)
+    with HostSteps(((live_mod, "write_index"), (PagedStore, "write"),
+                    (ivf_mod, "build_ivf"))) as host:
+        t0 = time.perf_counter()
+        reply = retr.compact_live()
+        t1 = time.perf_counter()
+    n_after = len(walls) + readers
+    while len(walls) < n_after and not errors:         # read after it
+        stop.wait(0.01)
+    stop.set()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"readers: {errors[:2]}, alive "
+                           f"{[t.name for t in threads if t.is_alive()]}")
+    if answer_bits(*retr.search_batch(**batch)) != answer_bits(*want):
+        raise AssertionError("the answer after the compaction changed")
+    sec = reply["seconds"]
+    swap_lo = t0 + sec["colbert_dir"] + sec["splade_dir"] + sec["load"]
+    swap_hi = swap_lo + sec["gate_wait"] + sec["swap"]
+
+    def overlapping(lo, hi):
+        return [w for start, w in walls if start < hi and start + w > lo]
+
+    before = [w for start, w in walls if start + w <= t0]
+    during = overlapping(t0, t1)
+    over_swap = overlapping(swap_lo, swap_hi)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    ivf = vars(retr.searcher).get("ivf_padded")
+    allocated = (torch.cuda.memory_allocated() if device.type == "cuda"
+                 else 0)
+    ivf_bytes = 0 if ivf is None else -(-ivf.numel() * 4 // 512) * 512
+    wi = host.seconds["write_index"]
+    steps = dict(sec, colbert_concat=sec["colbert_dir"] - wi,
+                 pool_write=host.seconds["write"],
+                 ivf_build=host.seconds["build_ivf"],
+                 other_files=wi - host.seconds["write"]
+                 - host.seconds["build_ivf"])
+    return {"compacted": reply["compacted"],
+            "pool_tokens": int(retr.searcher.index.store.n_tokens),
+            "seconds": steps, "readers": readers,
+            "reader_calls": len(walls),
+            "reader_p50_before_s": (float(np.median(before)) if before
+                                    else None),
+            "reader_calls_during": len(during),
+            "reader_p50_during_s": (float(np.median(during)) if during
+                                    else None),
+            "longest_reader_during_s": max(during) if during else None,
+            "longest_reader_over_swap_s": (max(over_swap) if over_swap
+                                           else None),
+            "memory_allocated": allocated, "ivf_padded_bytes": ivf_bytes,
+            "memory_less_ivf": allocated - ivf_bytes}
+
+
+def unit_docs(rng, s: Shapes, topics: np.ndarray, n: int) -> list:
+    """n documents of unit-random token embeddings (lengths as phase 3's
+    docs) with topic terms: (doc_emb, term_ids, term_weights)."""
+    lens = np.clip(rng.normal(67, 30, n).round(), 8, s.Ld).astype(int)
+    tids, tw = topic_terms(rng, topics, n, s.doc_terms)
+    return [(unit(rng.normal(size=(L, s.d))), tids[i], tw[i])
+            for i, L in enumerate(lens)]
+
+
+def live_cost(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
+              device, counted: dict) -> tuple:
+    """(b) and (c) on phase 3's index. → (figures, the dirty run's
+    launches)."""
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.testing import REF_MARGIN, assert_topk_match
+    retr = make_retriever(path, device)
+    retr.enable_live()
+    engine = ServeEngine(retr, splade_backend="device")
+    cpu = make_retriever(path, "cpu")
+    cpu.enable_live()
+    cpu_engine = ServeEngine(cpu)
+    reqs = door_requests(rng, s, topics, s.n_requests, qid0=70_000)
+    warm = door_requests(rng, s, topics, 8, qid0=71_000)
+    out = {"requests": len(reqs), "max_batch": s.B}
+
+    clean, line = serve_run(engine, warm, reqs, s.B, counted)
+    check_launches("live clean", line["launches"], DOOR_KERNELS)
+    line["tie_routes"] = hold_to_cpu(
+        cpu_engine, {"mmap": retr.searcher},
+        [(r, res, "mmap") for r, res in zip(reqs, clean)], s)
+    out["clean"] = line
+
+    docs = unit_docs(rng, s, topics, LIVE_UPSERTS)
+    upsert_ms = []
+    for emb, tids, tw in docs:
+        t0 = time.perf_counter()
+        g = engine.live_upsert(emb, tids, tw)
+        upsert_ms.append((time.perf_counter() - t0) * 1e3)
+        if cpu_engine.live_upsert(emb, tids, tw) != g:
+            raise AssertionError("the CPU engine gave another pid")
+    n_all = s.n_docs + LIVE_UPSERTS
+    for g in rng.choice(n_all, LIVE_DELETES, replace=False).tolist():
+        if not (engine.live_delete(g) and cpu_engine.live_delete(g)):
+            raise AssertionError(f"delete {g} refused")
+    out["upsert_ms"] = {"p50": float(np.percentile(upsert_ms, 50)),
+                        "p99": float(np.percentile(upsert_ms, 99)),
+                        "mean": float(np.mean(upsert_ms))}
+    # a fresh engine: serve_run checks the engine's count of served
+    engine = ServeEngine(retr, splade_backend="device")
+    dirty, line = serve_run(engine, fresh(warm), fresh(reqs), s.B, counted)
+    check_launches("live dirty", line["launches"], ("decompress_maxsim",))
+    deeper = [dataclasses.replace(r, ctx=None, k=r.k + REF_MARGIN)
+              for r in reqs]
+    ref = []
+    for lo in range(0, len(deeper), s.B):
+        ref += cpu_engine.process_batch(deeper[lo:lo + s.B])
+    for req, res, want in zip(reqs, dirty, ref, strict=True):
+        assert_topk_match(want.scores, want.pids, res.scores, res.pids,
+                          what=f"live dirty qid {req.qid} {req.method}")
+    out["dirty"] = line
+    launches = line["launches"]
+    log(f"live (b): clean {out['clean']['qps']:.1f} QPS, dirty "
+        f"{line['qps']:.1f} QPS (p50 {out['clean']['p50_ms']:.1f} → "
+        f"{line['p50_ms']:.1f} ms); upsert {out['upsert_ms']} ms; every "
+        "answer matches the CPU live engine")
+
+    # the readers ask for the SPLADE methods: colbert's cap binds on this
+    # index, so a compaction, which moves the delta's docs under the
+    # cap, changes colbert's candidates (the rebuild bar holds only
+    # while the cap does not bind)
+    sp = [r for r in reqs if r.method != "colbert"][:s.B]
+    batch = {"method": [r.method for r in sp],
+             "q_embs": [r.q_emb for r in sp],
+             "term_ids": [r.term_ids for r in sp],
+             "term_weights": [r.term_weights for r in sp],
+             "alpha": [r.alpha for r in sp], "k": 100}
+    # the first compaction under readers, the second alone: its steps
+    # without the readers' host work beside them
+    out["compactions"] = [compact_measured(retr, batch, retr.device,
+                                           LIVE_READERS)]
+    for emb, tids, tw in unit_docs(rng, s, topics, LIVE_MORE):
+        engine.live_upsert(emb, tids, tw)
+    out["compactions"].append(compact_measured(retr, batch, retr.device, 0))
+    mem = [c["memory_less_ivf"] for c in out["compactions"]]
+    if mem[0] != mem[1]:
+        raise AssertionError(f"device memory grew across compactions: "
+                             f"{out['compactions']}")
+    log(f"live (c): a compaction under {LIVE_READERS} readers, every "
+        f"answer unchanged, and one alone: {out['compactions']}")
+    for c in (retr.searcher.index.path.parent.glob("*.g*")):
+        shutil.rmtree(c)
+    return out, launches
+
+
+def live_tcp(corpus, base: pathlib.Path, root: pathlib.Path, device) -> dict:
+    """(d): a live ``RetrievalServer`` over TCP against an in-process twin
+    on a copy of the same index: every admin reply equal to the twin's
+    same call, and the query replies after each mutation equal to the
+    served engine's in-process answers bit for bit."""
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.server import RetrievalServer, wire_request
+    cap = -(-(corpus["cfg"].n_docs + 1) // 1024) * 1024
+    engines = []
+    for name in ("tcp", "twin"):
+        for part in ("colbert", "splade"):
+            shutil.copytree(base / part, root / name / part)
+        r = live_parity_retriever(root / name, device, cap)
+        r.enable_live()
+        engines.append(ServeEngine(r))
+    engine, twin = engines
+    server = RetrievalServer(engine, max_batch=FULL.B)
+    server.start()
+    tcp = server.serve_tcp("127.0.0.1", 0)
+    serving = threading.Thread(target=tcp.serve_forever, name="tcp-serve-live",
+                               daemon=True)
+    serving.start()
+    n = corpus["cfg"].n_docs
+    checked = {"admin": 0, "queries": 0}
+    conn = None
+    try:
+        conn = Conn(server.tcp_port, live=True)
+
+        def admin(msg: dict, in_process):
+            got = conn.ask((json.dumps(msg) + "\n").encode())
+            if got != in_process:
+                raise AssertionError(f"{msg['op']}: over TCP {got}, in "
+                                     f"process {in_process}")
+            checked["admin"] += 1
+
+        def health():
+            got = conn.ask(b'{"op": "health"}\n')["health"]
+            want = {"live": twin.live_stats(),
+                    "index_generation": twin.retriever.index_generation}
+            if {k: got[k] for k in want} != want:
+                raise AssertionError(f"health: {got} against {want}")
+            checked["admin"] += 1
+
+        def queries(first: int):
+            for i, method in enumerate(DOOR_METHODS):
+                msg = json.loads(wire_line(corpus_request(corpus, first + i,
+                                                          method)))
+                got = conn.ask((json.dumps(msg) + "\n").encode())
+                want = engine.process(wire_request(msg))
+                hold_reply("live tcp", got, want, engine, wire_request(msg))
+                checked["queries"] += 1
+
+        def upsert(j: int):
+            doc = {"doc_emb": corpus["doc_embs"][j][:corpus["doc_lens"][j]],
+                   "term_ids": corpus["doc_term_ids"][j],
+                   "term_weights": corpus["doc_term_weights"][j]}
+            pid = twin.live_upsert(**doc)
+            admin({"op": "upsert", **{k: np.asarray(v).tolist()
+                                      for k, v in doc.items()}},
+                  {"ok": True, "pid": pid})
+
+        queries(0)
+        for j in range(4):
+            upsert(j)
+        queries(4)
+        for g in (7, n + 1, n + 1, n + 50):
+            admin({"op": "delete", "pid": g},
+                  {"ok": twin.live_delete(g)})
+        queries(8)
+        admin({"op": "live_stats"}, {"ok": True, "live": twin.live_stats()})
+        health()
+        out = twin.live_compact()
+        admin({"op": "compact"}, {"ok": True, "compacted": out["compacted"]})
+        admin({"op": "compact"}, {"ok": True, "compacted": 0})
+        twin.live_compact()
+        queries(12)
+        admin({"op": "live_stats"}, {"ok": True, "live": twin.live_stats()})
+        health()
+    finally:
+        if conn is not None:
+            conn.close()
+        server.shutdown_gracefully()
+        serving.join(timeout=600)
+    if serving.is_alive() or live_threads():
+        raise RuntimeError("the live TCP front left threads running")
+    log(f"live (d): over TCP {checked['admin']} admin replies equal the "
+        f"in-process twin's, {checked['queries']} query replies their "
+        "in-process answers bit for bit")
+    return checked
+
+
+def corpus_request(corpus, i: int, method: str):
+    """The corpus's query ``i`` as a request of ``method`` at k=10."""
+    from repro_torch.serving.engine import Request
+    return Request(qid=80_000 + i, method=method, q_emb=corpus["q_embs"][i],
+                   term_ids=corpus["q_term_ids"][i],
+                   term_weights=corpus["q_term_weights"][i], k=10)
+
+
+def live_phase(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
+               corpus, device) -> tuple:
+    """Phase 4f (see the module docstring). → (the ``live`` line's
+    figures, the launches of (b)'s dirty run)."""
+    counted = counted_kernels()
+    root = path / "live"
+    t0 = time.perf_counter()
+    out = {"parity": live_parity(rng, corpus, root, path / "build" /
+                                 "colbert", device, counted)}
+    out["parity_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["tcp"] = live_tcp(corpus, root / "base", root, device)
+    out["tcp_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["cost"], launches = live_cost(rng, s, path, topics, device, counted)
+    out["cost_s"] = time.perf_counter() - t0
     return out, launches
 
 
@@ -2259,11 +2874,12 @@ def serve_built(corpus, root: pathlib.Path, s: Shapes, device) -> dict:
 
 
 def build_phase(seed: int, s: Shapes, root: pathlib.Path, device,
-                peaks) -> dict:
+                peaks) -> tuple:
     """Phase 3b (see the module docstring): (a) the free build at full
     width, nbits 4 and 2, each step timed; (b) the nbits=4 build again,
     byte for byte; (c) pinned card == CPU; (d) quality, card and CPU
-    builds; (e) serving the card-built index. → the phase's figures."""
+    builds; (e) serving the card-built index. → (the phase's figures,
+    the corpus, which phase 4f serves live)."""
     from repro_torch.data.synth import SynthCfg, make_corpus
     from repro_torch.index.builder import build_colbert_index
     from repro_torch.index.splade_index import build_splade_index
@@ -2308,7 +2924,7 @@ def build_phase(seed: int, s: Shapes, root: pathlib.Path, device,
     out["pinned"] = check_pinned(corpus, root / "colbert", root, device)
     out["quality"] = check_quality(root, device)
     out["serve"] = serve_built(corpus, root, s, device)
-    return out
+    return out, corpus
 
 
 # ---------------------------------------------------------------------------
@@ -2768,7 +3384,7 @@ SOURCES = {
 
 def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
                    ctimes: dict, err: dict, s: Shapes, piped: dict,
-                   built: dict, tcp: dict) -> list:
+                   built: dict, tcp: dict, live: dict) -> list:
     """The ``{"kernels": [...]}`` line's entries: one per main path and
     kernel, with that path's launches from its own run (counts set to 0
     just before it, read just after) and the kernel timed at that path's
@@ -2781,7 +3397,9 @@ def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
     index (``built``: its launches) with the tail's two kernels, timed
     at the serve shape; phase 4e's first TCP turn of each run (``tcp``:
     label → its launches) with the three kernels of its path, timed at
-    the serve shape."""
+    the serve shape; phase 4f's dirty run on phase 3's index (``live``:
+    its launches) with the one kernel of the overlay path, timed at the
+    serve shape."""
     paths = [("serve_device", served["device"][0]["launches"], kname,
               times[kname]["batch"], err[kname], s.C) for kname in SOURCES]
     paths += [("front_door", door, kname, times[kname]["batch"], err[kname],
@@ -2807,6 +3425,9 @@ def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
     paths += [(label, launches, kname, times[kname]["batch"], err[kname],
                s.C) for label, launches in tcp.items()
               for kname in DOOR_KERNELS]
+    paths += [("live", live, "decompress_maxsim",
+               times["decompress_maxsim"]["batch"], err["decompress_maxsim"],
+               s.C)]
     out = []
     for path_name, launches, kname, t, max_err, C in paths:
         src, replaces = SOURCES[kname]
@@ -2870,7 +3491,8 @@ def main(argv=None) -> int:
         log(f"phase 3 splade kernel vs plain: "
             f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        built = build_phase(args.seed, s, path / "build", device, peaks)
+        built, build_corpus = build_phase(args.seed, s, path / "build",
+                                          device, peaks)
         log(f"phase 3b build: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         served = serve(rng, s, path, topics, device)
@@ -2891,6 +3513,11 @@ def main(argv=None) -> int:
         tcp, tcp_launches = tcp_front(sub_rng(args.seed, "tcp"), s, path,
                                       topics, device)
         log(f"phase 4e tcp front: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        live, live_launches = live_phase(sub_rng(args.seed, "live"), s,
+                                         path, topics, build_corpus, device)
+        del build_corpus
+        log(f"phase 4f live index: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         times = time_kernels(rng, s, device, peaks, path, topics, args.seed)
         ctimes = time_colbert(sub_rng(args.seed, "colbert timing"), s,
@@ -2920,7 +3547,7 @@ def main(argv=None) -> int:
                 "card": name, "power_limit": limit}), flush=True)
     kernels = kernel_entries(served, colbert, door_launches, times, ctimes,
                              err, s, piped, built["serve"]["launches"],
-                             tcp_launches)
+                             tcp_launches, live_launches)
     print(json.dumps({"phase": "build", **built, "card": name,
                       "power_limit": limit}), flush=True)
     print(json.dumps({"phase": "stage1_breakdown", **times["stage1"],
@@ -2940,6 +3567,8 @@ def main(argv=None) -> int:
     print(json.dumps({"phase": "pipelined", "runs": piped, "card": name,
                       "power_limit": limit}), flush=True)
     print(json.dumps({"phase": "tcp", **tcp, "card": name,
+                      "power_limit": limit}), flush=True)
+    print(json.dumps({"phase": "live", **live, "card": name,
                       "power_limit": limit}), flush=True)
     log(f"chip_smoke wall, build included: "
         f"{time.perf_counter() - t_all:.1f} s")

@@ -19,12 +19,21 @@ the CUDA kernels.
 With a cache hierarchy attached (:meth:`MultiStageRetriever.attach_caches`)
 the SPLADE stage 1 reads and fills per-query candidate rows, and
 ``colbert`` skips stages 1-3 when every query's survivors are cached.
+
+With a live index (:meth:`MultiStageRetriever.enable_live`) a dirty
+state — upserted documents in the delta segment or tombstoned pids — is
+served by overlay plans: stage 1 on the host CSR with the tombstones
+excluded, merged with the delta's top-k; colbert's candidates from the
+base IVF and the delta's; the delta's rows scored beside the base's by
+the same functions and kernel; always the split tail. Each answer
+equals a rebuild of the surviving corpus bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -33,7 +42,11 @@ import torch
 from repro_torch.common import HostCopy, resolve_device
 from repro_torch.core import hybrid as hybrid_mod
 from repro_torch.core.plaid import (PLAIDSearcher, pad_query_batch_host,
-                                    pad_topk_host, topk_host)
+                                    pad_topk_host, stage3_approx_score_batch,
+                                    topk_host)
+from repro_torch.core.sharded import merge_topk
+from repro_torch.index import live as live_mod
+from repro_torch.index.builder import ColBERTIndex
 from repro_torch.index.splade_device import SpladeDeviceCache
 from repro_torch.index.splade_index import SpladeIndex
 from repro_torch.serving.context import freeze
@@ -98,6 +111,10 @@ class MultiStageRetriever:
         # generation its entries are scoped to
         self._caches = None
         self.index_generation = 0
+        # None while the index is frozen; enable_live() attaches the
+        # live state (delta segment, tombstones, compaction gate)
+        self.live: Optional[live_mod.LiveIndexState] = None
+        self._compact_lock = threading.Lock()
         self.set_splade_backend(params.splade_backend)
         self.set_rerank_backend(params.rerank_backend)
         if params.splade_backend != "host":
@@ -156,21 +173,106 @@ class MultiStageRetriever:
         return self.index_generation
 
     # ------------------------------------------------------------------
-    # live index: not ported, so every index is frozen; each mutation
-    # refuses and the statistics are None, as the JAX package's are on one
+    # live (mutable) index: mutations and compaction; a dirty live index
+    # is served by the overlay plans (``_build_plan(live=True)``)
     # ------------------------------------------------------------------
+    def enable_live(self) -> live_mod.LiveIndexState:
+        """Attach a :class:`~repro_torch.index.live.LiveIndexState` on
+        this retriever's device and return it. Idempotent. Until the
+        first mutation the state is clean and every answer is the frozen
+        one, bit for bit."""
+        if self.live is not None:
+            return self.live
+        if self.searcher.device_resident:
+            raise ValueError("live index requires the host (mmap) tier; "
+                             "device_resident pools are frozen")
+        self.live = live_mod.LiveIndexState(self.searcher.index, self.splade,
+                                            device=self.device)
+        return self.live
+
+    def _require_live(self) -> live_mod.LiveIndexState:
+        if self.live is None:
+            raise RuntimeError(LIVE_NOT_ENABLED)
+        return self.live
+
+    def _live_dirty(self) -> bool:
+        return self.live is not None and self.live.dirty
+
     def live_upsert(self, doc_emb, term_ids, term_weights,
                     doc_len=None) -> int:
-        raise RuntimeError(LIVE_NOT_ENABLED)
+        """Append a document to the delta segment → its global pid.
+        Bumps the index generation so the caches invalidate."""
+        pid = self._require_live().upsert(doc_emb, term_ids, term_weights,
+                                          doc_len)
+        self.bump_index_generation()
+        return pid
 
     def live_delete(self, gpid: int) -> bool:
-        raise RuntimeError(LIVE_NOT_ENABLED)
-
-    def compact_live(self):
-        raise RuntimeError(LIVE_NOT_ENABLED)
+        """Tombstone a global pid; True if it was live before."""
+        ok = self._require_live().delete(gpid)
+        if ok:
+            self.bump_index_generation()
+        return ok
 
     def live_stats(self):
-        return None
+        """None on a frozen index; else the live counters and sizes with
+        the index ``generation``."""
+        live = self.live
+        if live is None:
+            return None
+        out = live.stats()
+        out["generation"] = self.index_generation
+        return out
+
+    def compact_live(self):
+        """Merge the delta prefix into a new on-disk index generation
+        and swap the serve handles.
+
+        The directories and the new searcher (its tables copied to the
+        device) are built outside the gate, while queries keep flowing
+        against base + delta; only the swap takes the write gate, which
+        drains the readers in flight, drops the plans, the padded SPLADE
+        postings and the old searcher (their device tensors go with
+        them), and bumps the generation. Global pids are stable across
+        the swap: delta doc ``j`` becomes base doc ``base_n + j``. One
+        compaction at a time. → None when the delta is empty, else
+        {"compacted", "colbert_dir", "splade_dir", "seconds": each
+        step's wall}."""
+        live = self._require_live()
+        with self._compact_lock:
+            n_take = live.snapshot_delta()
+            if n_take == 0:
+                return None
+            marks = [time.perf_counter()]
+            idx = self.searcher.index
+            gen = self.index_generation + 1
+            col_dir = idx.path.with_name(f"{idx.path.name}.g{gen}")
+            spl_dir = idx.path.with_name(f"splade.g{gen}")
+            live_mod.compact_colbert_dir(idx, live, n_take, col_dir)
+            marks.append(time.perf_counter())
+            live_mod.compact_splade_dir(self.splade, live, n_take, spl_dir)
+            marks.append(time.perf_counter())
+            new_searcher = PLAIDSearcher(
+                ColBERTIndex(col_dir, mode=idx.store.mode),
+                self.searcher.params, device=self.device)
+            new_splade = SpladeIndex.load(spl_dir)
+            marks.append(time.perf_counter())
+            with live.gate.write():
+                marks.append(time.perf_counter())
+                self.splade = new_splade
+                self.searcher = new_searcher
+                with self._lock:
+                    self._plans.clear()
+                    self._splade_device = None
+                live.rebase(n_take)
+                self.bump_index_generation()
+            marks.append(time.perf_counter())
+        steps = ("colbert_dir", "splade_dir", "load", "gate_wait", "swap")
+        seconds = {name: marks[i + 1] - marks[i]
+                   for i, name in enumerate(steps)}
+        seconds["total"] = marks[-1] - marks[0]
+        return {"compacted": n_take, "colbert_dir": str(col_dir),
+                "splade_dir": str(spl_dir), "seconds": seconds}
 
     def _plaid_salt(self) -> str:
         sp = self.searcher.params
@@ -211,17 +313,41 @@ class MultiStageRetriever:
     # ------------------------------------------------------------------
     def run_splade_batch(self, term_ids, term_weights,
                          k: Optional[int] = None,
-                         backend: Optional[str] = None):
+                         backend: Optional[str] = None,
+                         live: Optional[bool] = None):
         """Stage 1 for a whole micro-batch: one vectorised host CSR pass
         (``host``) or one SPLADE kernel launch and a device top-k
-        (``device``); ``backend`` defaults to the retriever's. → host
-        (pids (B, k) int64 −1 padded, scores (B, k) f32)."""
+        (``device``); ``backend`` defaults to the retriever's. A dirty
+        live index scores on the host whatever the backend
+        (:meth:`_run_splade_live`). ``live`` says whether to score as
+        the dirty live index (None: as the live state is now); a plan
+        passes the routing of its batch, so that an upsert landing
+        mid-batch cannot hand a frozen plan delta pids. → host (pids
+        (B, k) int64 −1 padded, scores (B, k) f32)."""
         backend = check_splade_backend(backend or self.splade_backend)
         k = self.params.first_k if k is None else k
+        if self._live_dirty() if live is None else live:
+            return self._run_splade_live(self.live, term_ids, term_weights,
+                                         k)
         if backend == "host":
             return self.splade.score_batch_host(term_ids, term_weights, k)
         return self.splade_device_cache().score_topk(term_ids,
                                                      term_weights, k)
+
+    def _run_splade_live(self, live, term_ids, term_weights, k: int):
+        """Stage 1 of a dirty live index, on the host whatever the
+        backend: the base CSR with tombstoned base pids excluded before
+        its top-k (a deleted doc may not displace a survivor), merged
+        with the delta segment's own top-k. The merge of top-k lists of
+        disjoint partitions under (score desc, pid asc) is the top-k of
+        their union, so the result is what one index over base ∪ delta
+        minus the tombstones scores."""
+        base = self.splade.score_batch_host(term_ids, term_weights, k,
+                                            exclude=live.base_exclude)
+        d_pids, d_scores = live.splade_delta_topk(term_ids, term_weights, k)
+        return merge_topk(
+            np.concatenate([base[0].astype(np.int64), d_pids], axis=1),
+            np.concatenate([base[1], d_scores], axis=1), k, pad_score=0.0)
 
     def search(self, method: str, q_emb=None, term_ids=None,
                term_weights=None, alpha: Optional[float] = None,
@@ -254,30 +380,46 @@ class MultiStageRetriever:
                               term_weights=pick(term_weights),
                               alphas=alphas, ctxs=pick(ctxs))
 
-    def compile_plan(self, method: str) -> StagePlan:
+    def compile_plan(self, method: str, live: bool = False) -> StagePlan:
         """The method's typed stage graph, cached per (method, stage-1
-        backend, rerank backend)."""
+        backend, rerank backend, live); ``live`` asks for the overlay
+        plan of a dirty live index."""
         if method not in METHODS:
             raise ValueError(f"method {method!r} not in {METHODS}")
-        key = (method, self.splade_backend, self.rerank_backend)
+        key = (method, self.splade_backend, self.rerank_backend, live)
         with self._lock:
             plan = self._plans.get(key)
             if plan is None:
-                plan = self._plans[key] = self._build_plan(method)
+                plan = self._plans[key] = self._build_plan(method, live)
             return plan
 
-    def _build_plan(self, method: str) -> StagePlan:
+    def _build_plan(self, method: str, live: bool = False) -> StagePlan:
         """Host stages touch only numpy (mmap gathers, padding); every
         host↔device copy and every device sync lives in a device
         stage. With the pool resident on the device the gathers run
-        there and are device stages."""
+        there and are device stages.
+
+        ``live``: the overlay plan of a dirty live index (mmap pool
+        only). Stage 1 runs on the host (``run_splade_batch(live=True)``);
+        the gathers read base rows and leave the delta's pids out; the
+        exact stage scores the delta's candidates beside the base's;
+        colbert's approximate stage drops tombstoned candidates and
+        merges the delta's; the tail is the split one."""
         p = self.params
         searcher = self.searcher
+        state = self.live if live else None
         dr = searcher.device_resident
         gather_kind = DEVICE if dr else HOST
         access = None if dr else searcher.index.store.stats
         backend = self.splade_backend
-        s1_kind = HOST if backend == "host" else DEVICE
+        s1_kind = HOST if backend == "host" or live else DEVICE
+
+        def base_rows(pids):
+            # the residual gathers read base rows: a delta pid is -1 to
+            # them, and its rows come from the delta segment
+            if state is None:
+                return pids
+            return np.where(np.asarray(pids) >= state.base_n, -1, pids)
 
         def splade_stage(cb):
             # both backends return host arrays. Stage-1 cache: a row's
@@ -288,7 +430,7 @@ class MultiStageRetriever:
             if keys is None:
                 pids_b, s_scores = self.run_splade_batch(
                     list(cb.term_ids), list(cb.term_weights), p.first_k,
-                    backend=backend)
+                    backend=backend, live=live)
                 return cb.with_state(pids_b=pids_b, s_scores=s_scores)
             cache = self._caches.stage1
             rows = [None if k_ is None else cache.get(k_) for k_ in keys]
@@ -300,7 +442,7 @@ class MultiStageRetriever:
                 pids_m, scores_m = self.run_splade_batch(
                     [cb.term_ids[i] for i in miss],
                     [cb.term_weights[i] for i in miss], p.first_k,
-                    backend=backend)
+                    backend=backend, live=live)
                 gen = self.index_generation
                 for j, i in enumerate(miss):
                     rows[i] = (pids_m[j], scores_m[j])
@@ -326,7 +468,8 @@ class MultiStageRetriever:
         def gather(cb):
             s = cb.state
             q, q_valid = pad_query_batch_host(cb.q_embs)
-            codes, packed, valid = searcher.gather_tokens_batch(s["pids_b"])
+            codes, packed, valid = searcher.gather_tokens_batch(
+                base_rows(s["pids_b"]))
             return cb.with_state(q=q, q_valid=q_valid, g_codes=codes,
                                  g_packed=packed, g_valid=valid)
 
@@ -356,26 +499,61 @@ class MultiStageRetriever:
                 self.pipeline_stats.counter(
                     "cache_stage1_misses", sum(r is None for r in rows))
             st = searcher.probe_batch(cb.q_embs)
-            # the host gather reads host candidates: copy them here
+            # the host gather reads host candidates: copy them here (and
+            # the probed centroids, which give the delta's candidates)
             cand = st["cand"] if dr else st["cand"].cpu().numpy()
+            cids = st["cids"].cpu().numpy() if live else None
             return cb.with_state(q=st["q"], q_valid=st["q_valid"],
                                  scores_c=st["scores_c"], cand=st["cand"],
-                                 cand_g=cand)
+                                 cand_g=cand, cids_g=cids)
 
         def gather_codes(cb):
-            if cb.state.get("stage1_cached"):
+            s = cb.state
+            if s.get("stage1_cached"):
                 return cb
-            codes, valid = searcher.gather_codes_batch(cb.state["cand_g"])
-            return cb.with_state(c_codes=codes, c_valid=valid)
+            codes, valid = searcher.gather_codes_batch(s["cand_g"])
+            if state is None:
+                return cb.with_state(c_codes=codes, c_valid=valid)
+            # the delta's candidates: its docs holding a probed centroid
+            d_lists = state.delta_candidates(s["cids_g"])
+            d_cand = np.full((len(d_lists),
+                              max(1, max(map(len, d_lists)))), -1, np.int64)
+            for b, arr in enumerate(d_lists):
+                d_cand[b, :len(arr)] = arr
+            return cb.with_state(c_codes=codes, c_valid=valid, d_cand=d_cand)
+
+        def live_survivors(s, codes, valid):
+            # base candidates' approximate scores with the tombstoned ones
+            # dropped (pid -1, -inf: what a padded slot is), merged with
+            # the delta's by (score desc, pid asc) — approx_select_batch's
+            # order
+            approx = stage3_approx_score_batch(s["scores_c"], codes, valid,
+                                               s["q_valid"])
+            approx = approx.masked_fill(s["cand"] < 0, float("-inf"))
+            cand = s["cand_g"]
+            tomb = state.is_tombstoned(np.clip(cand, 0, None)) & (cand >= 0)
+            d_approx = state.approx_scores(s["scores_c"], s["q_valid"],
+                                           s["d_cand"])
+            pids_b, _ = merge_topk(
+                np.concatenate([np.where(tomb, -1, cand).astype(np.int64),
+                                s["d_cand"]], axis=1),
+                np.concatenate([np.where(tomb, -np.inf,
+                                         approx.cpu().numpy()),
+                                d_approx], axis=1),
+                min(searcher.params.ndocs, searcher.params.candidate_cap))
+            return pids_b
 
         def approx(cb):
             s = cb.state
             if s.get("stage1_cached"):
                 return cb
             codes, valid = searcher.to_device(s["c_codes"], s["c_valid"])
-            final = searcher.approx_select_batch(
-                s["scores_c"], codes, valid, s["q_valid"], s["cand"])
-            pids_b = final.cpu().numpy().astype(np.int64)
+            if state is None:
+                final = searcher.approx_select_batch(
+                    s["scores_c"], codes, valid, s["q_valid"], s["cand"])
+                pids_b = final.cpu().numpy().astype(np.int64)
+            else:
+                final, pids_b = None, live_survivors(s, codes, valid)
             keys = self._stage1_ctx_keys(cb)
             if keys is not None:
                 # each row with its count of real candidates after the
@@ -392,7 +570,7 @@ class MultiStageRetriever:
         def gather_survivors(cb):
             s = cb.state
             codes, packed, valid = searcher.gather_tokens_batch(
-                s["final"] if dr else s["pids_b"])
+                s["final"] if dr else base_rows(s["pids_b"]))
             return cb.with_state(g_codes=codes, g_packed=packed,
                                  g_valid=valid)
 
@@ -413,6 +591,15 @@ class MultiStageRetriever:
             q, q_valid, codes, packed, valid, mask = device_inputs(cb)
             c = searcher.exact_score_gathered(q, q_valid, codes, packed,
                                               valid, mask)
+            pids = cb.state["pids_b"]
+            if state is not None and (pids >= state.base_n).any():
+                # the delta's candidates, scored by their own launch; each
+                # candidate's score is its own, so the stitched matrix is
+                # what one launch over base ∪ delta gives
+                delta = pids >= state.base_n
+                d = state.exact_scores(q, q_valid, np.where(delta, pids, -1))
+                (on_delta,) = searcher.to_device(delta)
+                c = torch.where(on_delta, d, c)
             if method == "hybrid":
                 (s_scores,) = searcher.to_device(cb.state["s_scores"])
                 c = hybrid_mod.hybrid_scores(
@@ -450,7 +637,7 @@ class MultiStageRetriever:
         # hand-written kernel and enqueues its result's copy to the host
         # behind an event; the sync stage closes the window by waiting
         # for that event
-        if self.rerank_backend == "fused":
+        if self.rerank_backend == "fused" and not live:
             tail = (Stage("fused_rerank", DEVICE, score_fused,
                           opens_async=True, device_dispatches=1),
                     Stage("fused_rerank:sync", DEVICE, fuse_fused,
@@ -458,8 +645,9 @@ class MultiStageRetriever:
         else:
             score_name = ("device_score:exact" if method == "colbert"
                           else "device_score:maxsim")
+            # a live index's delta candidates take a second launch
             tail = (Stage(score_name, DEVICE, score, opens_async=True,
-                          device_dispatches=1),
+                          device_dispatches=2 if live else 1),
                     Stage("fuse_topk", DEVICE, fuse_split,
                           closes_async=True, device_dispatches=0))
         if method == "colbert":
@@ -491,7 +679,22 @@ class MultiStageRetriever:
         way in a mixed batch. ``ctxs``: optional per-query
         :class:`~repro_torch.serving.context.RequestContext` sequence;
         with caches attached, the plans consult each context's
-        ``stage1_key``."""
+        ``stage1_key``.
+
+        With a live index the whole batch holds the compaction gate's
+        read side: batches run concurrently (and re-entrantly — a mixed
+        batch recurses here) and only the swap of a compaction excludes
+        them."""
+        live = self.live
+        if live is None:
+            return self._search_batch(method, q_embs, term_ids,
+                                      term_weights, alpha, k, ctxs)
+        with live.gate.read():
+            return self._search_batch(method, q_embs, term_ids,
+                                      term_weights, alpha, k, ctxs)
+
+    def _search_batch(self, method, q_embs, term_ids, term_weights, alpha,
+                      k: Optional[int], ctxs):
         p = self.params
         k = p.k if k is None else k
         n = len(q_embs) if q_embs is not None else len(term_ids)
@@ -504,7 +707,8 @@ class MultiStageRetriever:
         alphas = self._alpha_array(alpha, n)
         cb = self.build_batch(method, q_embs, term_ids, term_weights,
                               alphas, k, n, ctxs=ctxs)
-        cb = self.compile_plan(method).run(cb, stats=self.pipeline_stats)
+        plan = self.compile_plan(method, live=self._live_dirty())
+        cb = plan.run(cb, stats=self.pipeline_stats)
         return cb.pids, cb.scores
 
     def _alpha_array(self, alpha, n: int) -> np.ndarray:

@@ -39,9 +39,15 @@ def build_ivf(token_cids: np.ndarray, token_pids: np.ndarray,
     cids = np.asarray(token_cids, np.int64)
     pids = np.asarray(token_pids, np.int64)
     # one int64 key per (cid, pid) pair: its sorted unique set is the
-    # (cid, pid)-lexicographic order, without a 2-D row unique
+    # (cid, pid)-lexicographic order, without a 2-D row unique. A sort
+    # and a mask, not np.unique: from numpy 2.3 on it finds uniques with
+    # a hash table, over an order of magnitude slower than the sort on
+    # millions of mostly distinct keys
     stride = int(pids.max()) + 1 if pids.size else 1
-    keys = np.unique(cids * stride + pids)
+    keys = np.sort(cids * stride + pids)
+    first = np.ones(keys.size, bool)
+    first[1:] = keys[1:] != keys[:-1]
+    keys = keys[first]
     cids, pids = keys // stride, keys % stride
     counts = np.bincount(cids, minlength=n_centroids)
     offsets = np.zeros(n_centroids + 1, np.int64)

@@ -421,8 +421,9 @@ class RetrievalServer:
     def health(self) -> dict:
         """Server vitals (queue depth, served/failed/shed counts, the
         adaptive batch cap and its latency EWMA) and, where the engine
-        has a retriever, its per-stage instrumentation and counters;
-        the admission controller's and the caches' statistics where
+        has a retriever, its per-stage instrumentation and counters
+        (and, on a live index, its live statistics and generation); the
+        admission controller's and the caches' statistics where
         they are set; the executors' queue depths when the engine is
         pipelined."""
         with self._lock:
@@ -451,6 +452,10 @@ class RetrievalServer:
                 for name, r in snap["stages"].items()}
             h["overlap_fraction"] = snap["overlap_fraction"]
             h["counters"] = snap["counters"]
+            live = retr.live_stats()
+            if live is not None:
+                h["live"] = live
+                h["index_generation"] = retr.index_generation
         if self.admission is not None:
             h["admission"] = self.admission.stats()
         caches = getattr(self.engine, "caches", None)

@@ -17,6 +17,7 @@ decompress+MaxSim.
 """
 
 import dataclasses
+import shutil
 import threading
 
 import numpy as np
@@ -30,7 +31,7 @@ from repro_torch.core.plaid import (PLAIDSearcher, PlaidParams,
                                     stage2_candidates_batch,
                                     stage3_approx_score_batch)
 from repro_torch.data.synth import SynthCfg, make_corpus
-from repro_torch.index import kmeans
+from repro_torch.index import kmeans, live
 from repro_torch.index.builder import (ColBERTIndex, build_colbert_index,
                                        write_index)
 from repro_torch.index.residual import encode_residuals, fit_codec
@@ -956,3 +957,97 @@ def test_build_on_card_matches_cpu(cuda, tmp_path):
                              "ivf_offsets.npy"):
             continue    # the tie's tokens, and the IVF lists they enter
         assert (card / name).read_bytes() == (host / name).read_bytes(), name
+
+
+def test_live_trace_on_card(cuda, tmp_path):
+    """The live index on the card: the canonical trace (upsert held-out
+    docs, tombstone base docs and a delta doc), served dirty and after a
+    compaction. On the card every answer equals a pinned card rebuild of
+    the surviving corpus bit for bit, the delta codes equal the rebuild's
+    rows, a dirty batch launches decompress_maxsim and nothing else; and
+    every answer matches the same trace's run with ``device="cpu"``."""
+    corpus = make_corpus(SynthCfg(n_docs=240, n_queries=16, vocab=512,
+                                  dim=32, n_topics=12, doc_maxlen=20,
+                                  query_maxlen=6, seed=3))
+    hold, deleted_base = 8, (5, 17, 100, 201)
+    n = corpus["cfg"].n_docs - hold
+    build_colbert_index(tmp_path / "base" / "colbert", corpus["doc_embs"][:n],
+                        corpus["doc_lens"][:n], nbits=4, n_centroids=64,
+                        kmeans_iters=4, device="cpu")
+    build_splade_index(corpus["doc_term_ids"][:n],
+                       corpus["doc_term_weights"][:n], corpus["cfg"].vocab,
+                       n).save(tmp_path / "base" / "splade")
+    params = dict(plaid=PlaidParams(nprobe=4, candidate_cap=4096, ndocs=128,
+                                    k=10),
+                  ms=MultiStageParams(first_k=64, k=10,
+                                      splade_backend="device"))
+    q = dict(q_embs=list(corpus["q_embs"]),
+             term_ids=list(corpus["q_term_ids"]),
+             term_weights=list(corpus["q_term_weights"]))
+
+    def retriever(path, device):
+        return MultiStageRetriever(
+            SpladeIndex.load(path / "splade"),
+            PLAIDSearcher(ColBERTIndex(path / "colbert"), params["plaid"],
+                          device=device), params["ms"], device=device)
+
+    def answers(retr, k):
+        return {m: retr.search_batch(m, **q, k=k) for m in METHODS}
+
+    deleted = set(deleted_base) | {n + 2}
+    survivors = np.array([g for g in range(corpus["cfg"].n_docs)
+                          if g not in deleted], np.int64)
+    idx = ColBERTIndex(tmp_path / "base" / "colbert")
+    runs = {}
+    for device in (cuda, "cpu"):
+        path = tmp_path / str(device)
+        shutil.copytree(tmp_path / "base", path)
+        retr = retriever(path, device)
+        retr.enable_live()
+        for j in range(n, corpus["cfg"].n_docs):
+            retr.live_upsert(corpus["doc_embs"][j], corpus["doc_term_ids"][j],
+                             corpus["doc_term_weights"][j],
+                             corpus["doc_lens"][j])
+        for g in sorted(deleted):
+            assert retr.live_delete(g)
+        k = 10 if device == cuda else 10 + REF_MARGIN
+        before = _launch_counts()
+        dirty = answers(retr, k)
+        after = _launch_counts()
+        if device == cuda:
+            assert after[0] == before[0] and after[2] == before[2]
+            assert after[1] > before[1]       # decompress_maxsim only
+        delta_cids = [c.copy() for c in retr.live._cids]
+        assert retr.compact_live()["compacted"] == hold
+        runs[str(device)] = (dirty, answers(retr, k), delta_cids)
+
+    rebuild = tmp_path / "rebuild"
+    live.build_reference_indexes(
+        rebuild / "colbert", rebuild / "splade",
+        corpus["doc_embs"][survivors], corpus["doc_lens"][survivors],
+        corpus["doc_term_ids"][survivors],
+        corpus["doc_term_weights"][survivors], corpus["cfg"].vocab,
+        centroids=idx.centroids, bucket_cutoffs=idx.bucket_cutoffs,
+        bucket_weights=idx.bucket_weights, nbits=idx.nbits,
+        quantum=SpladeIndex.load(tmp_path / "base" / "splade").quantum,
+        device=cuda)
+    want = answers(retriever(rebuild, cuda), 10)
+    ref = ColBERTIndex(rebuild / "colbert")
+    codes = np.asarray(ref.store.codes)
+    for j, cids in enumerate(runs[str(cuda)][2]):
+        r = int(np.searchsorted(survivors, n + j))
+        if n + j in deleted:
+            continue
+        lo, hi = ref.doc_offsets[r], ref.doc_offsets[r + 1]
+        np.testing.assert_array_equal(cids, codes[lo:hi], err_msg=f"doc {j}")
+    for state in (0, 1):
+        for m in METHODS:
+            got = runs[str(cuda)][state][m]
+            np.testing.assert_array_equal(
+                live.map_global_to_ref(got[0], survivors), want[m][0],
+                err_msg=f"{m} state {state}")
+            np.testing.assert_array_equal(got[1].view(np.uint32),
+                                          want[m][1].view(np.uint32))
+            cpu = runs["cpu"][state][m]
+            assert_topk_match(cpu[1], cpu[0], got[1], got[0],
+                              what=f"{m} state {state}")

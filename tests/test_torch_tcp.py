@@ -13,6 +13,13 @@ scores meet the parity bar (``assert_topk_match`` against the JAX
 engine's answer ``REF_MARGIN`` places deeper); errors from the same code
 have the same text.
 
+The admin ops on a live index: a port front and a JAX front, each over
+a live retriever on its own copy of the index, get the same upserts,
+deletes, compactions, ``live_stats`` and ``health`` lines: every admin
+reply equals the JAX reply (``health``'s ``live`` and
+``index_generation``), and the queries after each mutation meet the
+parity bar against the JAX front's answers ``REF_MARGIN`` places deeper.
+
 Port only: ``serve_tcp`` on port 0; ``shutdown_gracefully`` idempotent,
 its second caller returning only after the drain; a front that was
 never served shutting down; the SIGTERM handler draining queued
@@ -27,6 +34,7 @@ pipeline or worker thread outlives its test.
 
 import json
 import os
+import shutil
 import signal
 import socket
 import threading
@@ -606,3 +614,131 @@ def test_a_shed_reply_says_why(built_index, splade_dir, small_corpus):
     assert out["error"].startswith(
         "request shed by admission control: overload (predicted ")
     assert srv.health()["sheds"] == 1 and srv.health()["served"] == 0
+
+
+# -- the admin ops on a live index -------------------------------------------
+
+def _live_lines(corpus):
+    """(name, payload, corpus query or None) in the order sent to a live
+    front: two upserts (copies of docs 0 and 1, with their own terms),
+    deletes of a base pid, a delta pid, an unknown pid and a repeat,
+    ``live_stats`` and ``health`` around a compaction, an empty
+    compaction, and a query after each mutation, each asked at k and at
+    k + ``REF_MARGIN`` (the reference's depth)."""
+    n = corpus["cfg"].n_docs
+
+    def upsert(j):
+        return {"op": "upsert", "doc_emb": corpus["doc_embs"][j].tolist(),
+                "doc_len": int(corpus["doc_lens"][j]),
+                "term_ids": corpus["doc_term_ids"][j].tolist(),
+                "term_weights": corpus["doc_term_weights"][j].tolist()}
+
+    def queries(tag, i):
+        return [(f"{tag}_{m}{deep}", _query(corpus, 100 + i, i, m,
+                                            10 + deep), i)
+                for m in ("hybrid", "colbert", "splade")
+                for deep in (0, REF_MARGIN)]
+
+    return ([("upsert_0", upsert(0), None), ("upsert_1", upsert(1), None)]
+            + queries("after_upserts", 0)
+            + [("delete_base", {"op": "delete", "pid": 3}, None),
+               ("delete_delta", {"op": "delete", "pid": n + 1}, None),
+               ("delete_again", {"op": "delete", "pid": 3}, None),
+               ("delete_unknown", {"op": "delete", "pid": n + 99}, None)]
+            + queries("after_deletes", 1)
+            + [("live_stats_dirty", {"op": "live_stats"}, None),
+               ("health_dirty", {"op": "health"}, None),
+               ("compact", {"op": "compact"}, None),
+               ("compact_empty", {"op": "compact"}, None),
+               ("live_stats_compacted", {"op": "live_stats"}, None),
+               ("health_compacted", {"op": "health"}, None)]
+            + queries("after_compact", 2))
+
+
+LIVE_ADMIN = ("upsert_0", "upsert_1", "delete_base", "delete_delta",
+              "delete_again", "delete_unknown", "live_stats_dirty",
+              "health_dirty", "compact", "compact_empty",
+              "live_stats_compacted", "health_compacted")
+LIVE_QUERIES = tuple(f"{tag}_{m}" for tag in ("after_upserts",
+                                              "after_deletes",
+                                              "after_compact")
+                     for m in ("hybrid", "colbert", "splade"))
+
+
+@pytest.fixture(scope="module")
+def live_wire(built_index, splade_dir, small_corpus, tmp_path_factory):
+    """The live lines sent to a port front and a JAX front, each over a
+    live retriever on its own copy of the index (a compaction writes
+    beside the index it compacts). → {"ours", "theirs"}: name → reply."""
+    lines = _live_lines(small_corpus)
+    root = tmp_path_factory.mktemp("live_tcp")
+    out = {}
+    for name, make in (("ours", _retr), ("theirs", _jretr)):
+        shutil.copytree(built_index, root / name / "colbert")
+        shutil.copytree(splade_dir, root / name / "splade")
+        retr = make(root / name / "colbert", root / name / "splade")
+        retr.enable_live()
+        server = (RetrievalServer if name == "ours" else JServer)(
+            (ServeEngine if name == "ours" else JEngine)(retr), max_batch=4)
+        server.start()
+        t = None
+        try:
+            _, t = _serve(server, f"tcp-serve-live-{name}")
+            conn = _Client(server.tcp_port)
+            try:
+                out[name] = {n: conn.ask(payload) for n, payload, _ in lines}
+            finally:
+                conn.close()
+        finally:
+            server.shutdown_gracefully()
+            if name == "theirs":
+                server.tcp.server_close()
+            if t is not None:
+                t.join(timeout=TIMEOUT)
+        assert t is not None and not t.is_alive()
+    return out
+
+
+@pytest.mark.parametrize("name", LIVE_ADMIN)
+def test_live_admin_reply_equals_the_jax_fronts(live_wire, name):
+    ours, theirs = live_wire["ours"][name], live_wire["theirs"][name]
+    if name.startswith("health"):
+        assert ours["ok"] is theirs["ok"] is True
+        for key in ("live", "index_generation"):
+            assert ours["health"][key] == theirs["health"][key], key
+        assert set(theirs["health"]) <= set(ours["health"])
+        return
+    assert ours == theirs
+
+
+@pytest.mark.parametrize("name", LIVE_QUERIES)
+def test_live_query_reply_matches_the_jax_fronts(live_wire, name):
+    ours = live_wire["ours"][f"{name}0"]
+    ref = live_wire["theirs"][f"{name}{REF_MARGIN}"]
+    assert "error" not in ours, ours
+    assert set(ours) == set(live_wire["theirs"][f"{name}0"])
+    assert_topk_match(np.asarray(ref["scores"], np.float32),
+                      np.asarray(ref["pids"]),
+                      np.asarray(ours["scores"], np.float32),
+                      np.asarray(ours["pids"]), what=name)
+
+
+def test_live_wire_saw_each_mutation(live_wire, small_corpus):
+    """The conversation did what it was built for: pids appended after
+    the base, the deletes' outcomes, a compaction of both docs, the
+    deleted pids gone from the answers after it."""
+    ours = live_wire["ours"]
+    n = small_corpus["cfg"].n_docs
+    assert ours["upsert_0"]["pid"] == n and ours["upsert_1"]["pid"] == n + 1
+    assert [ours[f"delete_{w}"]["ok"] for w in
+            ("base", "delta", "again", "unknown")] == [True, True, False,
+                                                       False]
+    assert ours["compact"]["compacted"] == 2
+    assert ours["compact_empty"]["compacted"] == 0
+    st = ours["live_stats_compacted"]["live"]
+    assert st["delta_docs"] == 0 and st["tombstones"] == 2
+    assert ours["health_compacted"]["health"]["index_generation"] == \
+        st["generation"]
+    for m in ("hybrid", "colbert", "splade"):
+        pids = ours[f"after_compact_{m}0"]["pids"]
+        assert 3 not in pids and n + 1 not in pids
