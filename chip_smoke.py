@@ -159,7 +159,11 @@ Phases, in order; any failure raises and the script exits non-zero:
              ``map_global_to_ref``); the delta's codes and residual rows
              equal the rebuild's rows (0 differ); each dirty batch
              launches decompress_maxsim (the splade method nothing) and
-             no other kernel. (d) A live ``RetrievalServer`` over TCP on
+             no other kernel. Rows that are exact ties between two of the
+             base's centroids get the same id and sim bits assigned
+             alone (L = 1..180, as an upsert) as inside a full and a
+             partial last chunk (as the rebuild), every matmul padded
+             to ``kmeans.CHUNK`` rows. (d) A live ``RetrievalServer`` over TCP on
              a copy of (a)'s base: every upsert, delete, compact,
              ``live_stats`` and ``health`` reply equal to the same call
              on an in-process twin; the query replies after each
@@ -174,8 +178,44 @@ Phases, in order; any failure raises and the script exits non-zero:
              more upserts and a compaction alone; each compaction's
              steps (the concatenation, the pool's write, the IVF, the
              SPLADE CSR, the load, the gate, the swap) and the device
-             memory after each (flat). The figures go on a ``live``
+             memory after each (flat); an upsert's assignment, by CUDA
+             events. The figures go on a ``live``
              line;
+4g. load   — the load generators (``repro_torch.serving.loadgen``) on
+             the phase-3 index, device stage 1, fused tail,
+             ``RetrievalServer(max_batch=32, batch_timeout_ms=5)``: 512
+             mixed SPLADE-method requests and 128 mmap ``colbert``
+             requests, each answer held bit for bit to a depth-1
+             reference run of the same requests (one burst), whose
+             answers are held to the CPU engine. Each run gets a new
+             engine, warmed first by as many full batches of its own
+             traffic as it has pipeline slots, in flight at once, so
+             that executors, streams and the allocator's blocks are set
+             up outside the timed window. (a) The service rate:
+             ``run_closed_loop`` at concurrency 1 and 32 (256 and 128
+             requests); μ is the concurrency-32 rate. (b) The open-loop
+             sweep: ``run_open_loop`` at 0.25-1.25 × μ, each rate at
+             depth 1, then depth 2 with single and kind workers; the
+             first depth-1 run of each traffic launches its path's
+             kernels and no other (colbert's codes gather 0 residual
+             pages). (c) ``run_poisson_load`` with bursts of 8 at 0.75 ×
+             μ, the answers through ``on_result``. (d) A Zipf trace (s
+             1.1 over 64 distinct requests) written to a file and read
+             back by ``load_trace``, served at 0.75 × μ with the exact
+             and stage-1 caches: the cache hits equal the exact-hit
+             counter's growth, the trace's unique and repeat counts
+             hold, every repeat its first answer. (e) ``run_open_loop``
+             at 1.25 × μ with an admission SLO between the cheap and
+             the full plan's cost: served + shed + failed = 512, the
+             sheds the server's, the degraded answers the admission's
+             count and their splade plan's bits. A thin proxy keeps
+             each future and the submitter's lateness against its
+             schedule (its largest, the scheduled instant where it
+             fell and how much of it the garbage collector took) and
+             the run's collections; before the runs, the heap's tracked
+             objects and the time of two full collections; no server,
+             executor or client thread outlives a run. One ``load``
+             line per run;
 5. time    — time each kernel with CUDA events at the serve shapes, and
              each at B=1, in an eager loop (the rerank tail's two
              kernels, MaxSim, the SPLADE kernel's two entry points and
@@ -199,7 +239,8 @@ first single-worker runs (``pipelined_splade``, ``pipelined_colbert``,
 index (``built_index``), phase 4e's first TCP turn at each depth
 (``tcp``, ``tcp_pipelined``) with the three kernels of its path, and
 phase 4f (b)'s dirty run (``live``) with decompress_maxsim, the only
-kernel of the overlay path;
+kernel of the overlay path, and phase 4g's first depth-1 open-loop run
+of each traffic (``load``, ``load_colbert``) with its path's kernels;
 ``launches`` is that path's own run's count, and the times are at that path's candidate width (``C``).
 
 Arithmetic is IEEE fp32: TF32 is switched off for matmuls and cuDNN.
@@ -211,6 +252,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import pathlib
@@ -2122,6 +2164,27 @@ def delta_code_diffs(live, oracle, survivors: np.ndarray) -> dict:
     return out
 
 
+def near_tie_counts(centroids: np.ndarray, device) -> dict:
+    """Rows that are exact ties in real arithmetic between two of the
+    base's centroids, assigned as an upsert assigns a document (its
+    L = 1..Ld rows alone) and as the rebuild does (inside a full and a
+    partial last chunk, ``testing.assign_placements``): with every
+    matmul padded to ``kmeans.CHUNK`` rows no id or sim bit may differ.
+    → {"padded": counts}."""
+    import torch
+    from repro_torch.index import kmeans
+    from repro_torch.testing import assign_placements, near_tie_rows
+    cent = torch.as_tensor(centroids, device=device)
+    rows = near_tie_rows(cent, FULL.Ld, seed=21)
+    out = {"padded": assign_placements(rows, cent, chunk=kmeans.CHUNK,
+                                       seed=22)}
+    if out["padded"]["ids_differ"] or out["padded"]["sims_differ"]:
+        raise AssertionError(f"near-tie rows alone differ from the "
+                             f"chunked rows: {out}")
+    log(f"live (a): near-tie rows alone == inside a chunk ({out})")
+    return out
+
+
 def live_parity(rng, corpus, root: pathlib.Path, geometry: pathlib.Path,
                 device, counted: dict) -> dict:
     """(a): live == a pinned card rebuild of the survivors, bit for bit,
@@ -2144,7 +2207,8 @@ def live_parity(rng, corpus, root: pathlib.Path, geometry: pathlib.Path,
     base_splade.save(root / "base" / "splade")
     out = {"base_docs": n_base, "upserted": LIVE_HOLD, "candidate_cap": cap,
            "base_build_s": time.perf_counter() - t0, "queries":
-           len(corpus["q_embs"]), "ks": list(LIVE_KS)}
+           len(corpus["q_embs"]), "ks": list(LIVE_KS),
+           "near_ties": near_tie_counts(pin["centroids"], device)}
 
     frozen_ans, frozen_l = live_answers(
         live_parity_retriever(root / "base", device, cap), corpus, counted,
@@ -2368,6 +2432,18 @@ def unit_docs(rng, s: Shapes, topics: np.ndarray, n: int) -> list:
             for i, L in enumerate(lens)]
 
 
+def assign_times(centroids, docs) -> dict:
+    """An upsert's assignment of the median-length document's rows
+    (padded to ``kmeans.CHUNK`` rows), by CUDA events."""
+    import torch
+    from repro_torch.index import kmeans
+    emb = sorted((d[0] for d in docs), key=len)[len(docs) // 2]
+    x = torch.as_tensor(np.asarray(emb, np.float32), device=centroids.device)
+    return {"rows": len(emb), "K": int(centroids.shape[0]),
+            "chunk": kmeans.CHUNK,
+            "padded": cuda_time_ms(lambda: kmeans.assign(x, centroids), 50)}
+
+
 def live_cost(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
               device, counted: dict) -> tuple:
     """(b) and (c) on phase 3's index. → (figures, the dirty run's
@@ -2406,6 +2482,7 @@ def live_cost(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
     out["upsert_ms"] = {"p50": float(np.percentile(upsert_ms, 50)),
                         "p99": float(np.percentile(upsert_ms, 99)),
                         "mean": float(np.mean(upsert_ms))}
+    out["assign_ms"] = assign_times(retr.live._centroids, docs)
     # a fresh engine: serve_run checks the engine's count of served
     engine = ServeEngine(retr, splade_backend="device")
     dirty, line = serve_run(engine, fresh(warm), fresh(reqs), s.B, counted)
@@ -2569,6 +2646,388 @@ def live_phase(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
     out["cost"], launches = live_cost(rng, s, path, topics, device, counted)
     out["cost_s"] = time.perf_counter() - t0
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4g: the load generators
+# ---------------------------------------------------------------------------
+
+# the open-loop sweep: offered rates as shares of the traffic's service
+# rate μ, each at depth 1, then with the executor's single and kind
+# workers
+LOAD_SHARES = (0.25, 0.5, 0.75, 1.0, 1.25)
+LOAD_MODES = ((1, None), (2, "single"), (2, "kind"))
+# requests per run: (the closed-loop probe, every other run)
+LOAD_N = {"splade": (256, 512), "colbert": (128, 128)}
+LOAD_KERNELS = {"splade": DOOR_KERNELS, "colbert": ("fused_rerank",)}
+LOAD_ZIPF = (64, 1.1)          # distinct requests, skew
+
+
+class LoadProxy:
+    """The server as a load generator sees it: ``submit`` delegates to
+    the server and keeps each request's future (``run_open_loop`` and
+    ``run_closed_loop`` return no results) with the instant the
+    generator called it."""
+
+    def __init__(self, server):
+        self.server = server
+        self.sent = []      # (request, future, perf_counter at the call)
+
+    def submit(self, req):
+        t = time.perf_counter()
+        fut = self.server.submit(req)
+        self.sent.append((req, fut, t))
+        return fut
+
+
+# the two schedules below repeat the generators' draws (the same
+# ``default_rng(seed).exponential`` calls in the same order);
+# tests/test_torch_loadgen.py holds them to the submit instants of
+# ``run_open_loop`` and ``run_poisson_load`` under a fake clock
+
+
+def open_loop_schedule(n: int, rate: float, seed: int) -> np.ndarray:
+    """Each request's due instant, as ``run_open_loop`` draws it."""
+    return np.cumsum(np.random.default_rng(seed).exponential(1.0 / rate, n))
+
+
+def poisson_schedule(n: int, qps: float, seed: int, burst: int = 1):
+    """Each request's due instant, as ``run_poisson_load`` draws it
+    (``time_scale`` 1): its burst's arrival."""
+    k = -(-n // burst)
+    due = np.cumsum(np.random.default_rng(seed).exponential(burst / qps, k))
+    return np.repeat(due, burst)[:n]
+
+
+def finite(x):
+    """JSON-safe: ``nan`` (a run with no answer) becomes None."""
+    return None if isinstance(x, float) and x != x else x
+
+
+class GCPauses:
+    """While in use, each garbage collection (any generation) as its
+    (start, end) on ``time.perf_counter``, from ``gc.callbacks``."""
+
+    def __init__(self):
+        self.spans, self._t = [], None
+
+    def _hook(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.spans.append((self._t, time.perf_counter()))
+            self._t = None
+
+    @property
+    def ms(self) -> list:
+        return [(b - a) * 1e3 for a, b in self.spans]
+
+    def within_ms(self, lo: float, hi: float) -> float:
+        """The collections' time inside [lo, hi], in ms."""
+        return sum(max(0.0, min(b, hi) - max(a, lo))
+                   for a, b in self.spans) * 1e3
+
+    def __enter__(self):
+        gc.callbacks.append(self._hook)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._hook)
+
+
+def heap_census() -> dict:
+    """The objects the garbage collector tracks, the most common types,
+    and the time of two full collections: the first frees what earlier
+    phases left in cycles, the second only walks the heap."""
+    import collections
+
+    def collect_ms() -> float:
+        t0 = time.perf_counter()
+        gc.collect()
+        return (time.perf_counter() - t0) * 1e3
+
+    first, second = collect_ms(), collect_ms()
+    objs = gc.get_objects()
+    top = collections.Counter(type(o).__name__ for o in objs)
+    out = {"tracked": len(objs), "full_collection_ms": first,
+           "walk_only_ms": second, "types": dict(top.most_common(8))}
+    del objs
+    return out
+
+
+def load_run(engine, warm, reqs, drive, counted: dict, schedule=None,
+             admission=None) -> tuple:
+    """Serve ``reqs`` by ``drive(proxy, reqs)`` (a load generator → its
+    ``LoadResult``) through a ``RetrievalServer(max_batch=32,
+    batch_timeout_ms=5)`` over ``engine``. Unless ``warm`` (a full
+    batch of the run's traffic) is None, ``engine.pipeline_depth``
+    copies of it are served first, in flight together, so that the
+    executors, their streams and the allocator's blocks for full
+    batches exist before the run. Then the stage records and launch
+    counts are set to 0 (only the counts when ``admission`` needs the
+    warm stage costs) just before the generator and read just after. No
+    server, executor or client thread may outlive the run. ``schedule``
+    (due instants from the generator's call) gives the submitter's
+    lateness. → (the proxy's (request, future) pairs, the run's
+    line)."""
+    from repro_torch.serving.server import RetrievalServer
+    if warm is not None and engine.pipelined:
+        for fut in [engine.process_batch_async(fresh(warm))
+                    for _ in range(engine.pipeline_depth)]:
+            fut.result(timeout=600)
+    elif warm is not None:
+        engine.process_batch(fresh(warm))
+    server = RetrievalServer(engine, max_batch=FULL.B, batch_timeout_ms=5.0,
+                             admission=admission)
+    server.start()
+    proxy = LoadProxy(server)
+    try:
+        if admission is None:
+            engine.retriever.reset_stage_stats()
+        for fn in counted.values():
+            fn.launches = 0
+        with GCPauses() as pauses:
+            t_call = time.perf_counter()
+            res = drive(proxy, reqs)
+        launches = read_counts(counted)
+        health = server.health()
+    finally:
+        server.stop()
+    left = live_threads(("pipe-", "pipeline-retry", "worker-")) + [
+        t.name for t in threading.enumerate()
+        if t.name.endswith("(client)") and t.is_alive()]
+    if left:
+        raise RuntimeError(f"threads outlived a load run: {left}")
+    if len(proxy.sent) != len(reqs) or not all(
+            f.done() for _, f, _ in proxy.sent):
+        raise RuntimeError("a load run left a request unsubmitted or "
+                           "unanswered")
+    line = {k: finite(v) for k, v in res.summary().items()}
+    line.update(batches=health["batches"], launches=launches,
+                server_sheds=health["sheds"],
+                stage_wall_s={n: r["wall_s"]
+                              for n, r in health["stages"].items()},
+                stage_pages={n: r["pages_touched"]
+                             for n, r in health["stages"].items()},
+                counters=health.get("counters", {}),
+                gc_pauses=len(pauses.ms),
+                gc_max_ms=max(pauses.ms, default=0.0))
+    if schedule is not None:
+        late = np.array([t - t_call for _, _, t in proxy.sent]) - schedule
+        worst = int(late.argmax())
+        due = t_call + schedule[worst]
+        line.update(max_lateness_ms=float(late[worst] * 1e3),
+                    max_lateness_at_s=float(schedule[worst]),
+                    # how much of the largest lateness the collector took
+                    max_lateness_gc_ms=pauses.within_ms(
+                        due, due + late[worst]),
+                    p50_lateness_ms=float(np.percentile(late, 50) * 1e3))
+    return [(r, f) for r, f, _ in proxy.sent], line
+
+
+def hold_bits(label: str, sent, want: dict, key=lambda r: r.qid) -> dict:
+    """Each answer of ``sent`` equals ``want[key(request)]`` bit for bit;
+    a shed is counted, any other failure raises. → {"answered", "shed",
+    "degraded": [(request, result), ...]} (degraded answers are held by
+    the caller)."""
+    from repro_torch.serving.admission import RequestShed
+    out = {"answered": 0, "shed": 0, "degraded": []}
+    for req, fut in sent:
+        err = fut.exception()
+        if isinstance(err, RequestShed):
+            out["shed"] += 1
+            continue
+        if err is not None:
+            raise RuntimeError(f"{label}: qid {req.qid} failed") from err
+        res = fut.result()
+        if res.degraded:
+            out["degraded"].append((req, res))
+            continue
+        same_bits([want[key(req)]], [res], f"{label} (vs the depth-1 "
+                                           "reference)")
+        out["answered"] += 1
+    return out
+
+
+def load_phase(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
+               device) -> tuple:
+    """Phase 4g (see the module docstring). → (the ``load`` lines, the
+    launches of each traffic's first depth-1 open-loop run)."""
+    from repro_torch.serving.admission import AdmissionController
+    from repro_torch.serving.context import CacheHierarchy
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.loadgen import (load_trace, run_closed_loop,
+                                             run_open_loop, run_poisson_load,
+                                             zipf_trace)
+
+    counted = counted_kernels()
+    retr = make_retriever(path, device)
+    heap = heap_census()
+    log(f"load: the heap before the runs: {heap}")
+    reqs = {"splade": make_requests(rng, s, topics, LOAD_N["splade"][1]),
+            "colbert": colbert_requests(rng, s, LOAD_N["colbert"][1])}
+    warm = {"splade": make_requests(rng, s, topics, s.B, qid0=80_000),
+            "colbert": colbert_requests(rng, s, s.B, qid0=80_100)}
+
+    def engine(depth=1, workers=None, caches=None):
+        return ServeEngine(retr, splade_backend="device", caches=caches,
+                           pipeline_depth=depth,
+                           pipeline_workers=workers or "single")
+
+    def seed():
+        return int(rng.integers(2 ** 31))
+
+    # the depth-1 reference: every request in one burst, held to the CPU
+    ref, held = {}, []
+    for kind, rs in reqs.items():
+        results, _ = serve_run(engine(), fresh(warm[kind]), fresh(rs),
+                               s.B, counted)
+        ref[kind] = {r.qid: r for r in results}
+        held += [(r, res, "mmap") for r, res in zip(rs, results)]
+    cpu = ServeEngine(make_retriever(path, "cpu"))
+    routes = hold_to_cpu(cpu, {"mmap": retr.searcher}, held, s)
+    log(f"load: the depth-1 reference answers ({len(held)}) match the CPU "
+        f"engine; through a tie at a stage boundary: {routes or 'none'}")
+
+    lines, mu, first = [], {}, {}
+
+    def record(kind, run, mode, line, **kw):
+        line.update(traffic=kind, run=run, mode=mode, **kw)
+        lines.append(line)
+        log(f"load {kind} {run} {mode} {kw}: offered {line['offered_qps']:.1f}"
+            f", achieved {line['achieved_qps']:.1f} QPS, p50/p95/p99 "
+            f"{line['p50']}/{line['p95']}/{line['p99']} s, n {line['n']}, "
+            f"shed {line['shed']}, degraded {line['degraded']}, "
+            f"{line['batches']} batches, lateness max "
+            f"{line.get('max_lateness_ms')} ms at "
+            f"{line.get('max_lateness_at_s')} s ("
+            f"{line.get('max_lateness_gc_ms')} ms of it collecting), gc "
+            f"max {line['gc_max_ms']:.1f} ms; launches {line['launches']}")
+
+    # (a) the service-rate probe: closed loops at depth 1
+    for kind, rs in reqs.items():
+        part = rs[:LOAD_N[kind][0]]
+        for c in (1, s.B):
+            sent, line = load_run(
+                engine(), warm[kind], fresh(part),
+                lambda p, r, c=c: run_closed_loop(p, r, concurrency=c),
+                counted)
+            hold_bits(f"load probe {kind} c={c}", sent, ref[kind])
+            record(kind, "probe", "depth1", line, concurrency=c)
+        mu[kind] = lines[-1]["achieved_qps"]
+
+    # (b) the open-loop sweep
+    for kind, rs in reqs.items():
+        for share in LOAD_SHARES:
+            rate = share * mu[kind]
+            for depth, workers in LOAD_MODES:
+                sd = seed()
+                mode = "depth1" if depth == 1 else workers
+                sent, line = load_run(
+                    engine(depth, workers), warm[kind], fresh(rs),
+                    lambda p, r, rate=rate, sd=sd: run_open_loop(
+                        p, r, arrival_rate=rate, seed=sd),
+                    counted, open_loop_schedule(len(rs), rate, sd))
+                hold_bits(f"load sweep {kind} {mode} x{share}", sent,
+                          ref[kind])
+                if kind not in first:
+                    first[kind] = line["launches"]
+                    check_launches(f"load {kind}", line["launches"],
+                                   LOAD_KERNELS[kind])
+                    pages = line["stage_pages"]
+                    if kind == "colbert" and (
+                            pages["host_gather:codes"] != 0
+                            or pages["host_gather:residuals"] == 0):
+                        raise RuntimeError(f"load colbert: residual pages "
+                                           f"of the gathers: {pages}")
+                record(kind, "sweep", mode, line, share=share)
+
+    # (c) bursty Poisson arrivals, the answers handed to on_result
+    rs, rate, sd = reqs["splade"], 0.75 * mu["splade"], seed()
+    got = []
+    sent, line = load_run(
+        engine(), warm["splade"], fresh(rs),
+        lambda p, r: run_poisson_load(p, r, qps=rate, seed=sd, burst=8,
+                                      on_result=got.append),
+        counted, poisson_schedule(len(rs), rate, sd, burst=8))
+    hold_bits("load burst", sent, ref["splade"])
+    if [r.qid for r in got] != [r.qid for r in rs]:
+        raise AssertionError("load burst: on_result did not see every "
+                             "answer in submission order")
+    same_bits([ref["splade"][r.qid] for r in got], got, "load burst "
+                                                        "on_result")
+    record("splade", "burst", "depth1", line, share=0.75, burst=8)
+
+    # (d) a Zipf trace, replayed from a file, with the exact cache
+    n_unique, skew = LOAD_ZIPF
+    trace = zipf_trace(len(rs), n_unique, skew=skew, seed=seed())
+    trace_file = path / "load_zipf.trace"
+    trace_file.write_text(f"# zipf s={skew} over {n_unique} requests\n\n"
+                          + "\n".join(map(str, trace.tolist())) + "\n")
+    if not np.array_equal(load_trace(trace_file), trace):
+        raise AssertionError("load_trace did not read back the trace")
+    distinct = rs[:n_unique]
+    zreqs = [dataclasses.replace(distinct[j], qid=90_000 + i, trace_id=j,
+                                 ctx=None)
+             for i, j in enumerate(trace.tolist())]
+    rate, sd = 0.75 * mu["splade"], seed()
+    try:
+        sent, line = load_run(
+            engine(caches=CacheHierarchy(exact_entries=256,
+                                         stage1_entries=256)),
+            warm["splade"], zreqs,
+            lambda p, r: run_poisson_load(p, r, qps=rate, seed=sd),
+            counted, poisson_schedule(len(zreqs), rate, sd))
+    finally:
+        retr.attach_caches(None)
+    hold_bits("load zipf", sent, ref["splade"],
+              key=lambda r: distinct[r.trace_id].qid)
+    unique = len(set(trace.tolist()))
+    hits = line["counters"].get("cache_exact_hits", 0)
+    if (line["cache_hits"], line["unique_queries"],
+            line["repeat_queries"]) != (hits, unique, len(trace) - unique):
+        raise AssertionError(f"load zipf: cache hits {line['cache_hits']} "
+                             f"against the counter's {hits}, trace "
+                             f"{unique} unique: {line}")
+    record("splade", "zipf", "depth1", line, share=0.75, zipf_s=skew,
+           distinct=n_unique)
+
+    # (e) overload with admission: the SLO between the cheap and the
+    # full plan's predicted costs, from the warm stage costs (phase 4c F)
+    eng = engine()
+    retr.reset_stage_stats()
+    eng.process_batch(fresh(rs[:s.B]))
+    stage1_ms, tail_ms, _ = AdmissionController.stage_costs(
+        retr.pipeline_stats.snapshot()["stages"])
+    if not tail_ms > 2 * stage1_ms:
+        raise RuntimeError(f"load admission: tail {tail_ms} ms is not over "
+                           f"twice stage 1's {stage1_ms} ms")
+    adm = AdmissionController(stage1_ms + tail_ms / 2)
+    rate, sd = 1.25 * mu["splade"], seed()
+    sent, line = load_run(
+        eng, None, fresh(rs),
+        lambda p, r: run_open_loop(p, r, arrival_rate=rate, seed=sd),
+        counted, open_loop_schedule(len(rs), rate, sd), admission=adm)
+    held = hold_bits("load admission", sent, ref["splade"])
+    stats = adm.stats()
+    if (line["n"] + line["shed"] + line["failed"] != len(rs)
+            or line["shed"] != line["server_sheds"]
+            or line["degraded"] != stats["degraded_admits"]):
+        raise AssertionError(f"load admission accounting: {line}, "
+                             f"admission {stats}")
+    if held["degraded"]:
+        twins = fresh([r for r, _ in held["degraded"]], method="splade")
+        want, _ = serve_run(engine(), fresh(warm["splade"]), twins, s.B,
+                            counted)
+        same_bits(want, [res for _, res in held["degraded"]],
+                  "load admission: a degraded answer vs its splade plan")
+    record("splade", "admission", "depth1", line, share=1.25,
+           slo_ms=stats["latency_slo_ms"], admission=stats)
+
+    for line in lines:
+        line.update(mu_s=mu["splade"], mu_c=mu["colbert"])
+    lines[0]["heap"] = heap
+    return lines, first
 
 
 # ---------------------------------------------------------------------------
@@ -3384,7 +3843,7 @@ SOURCES = {
 
 def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
                    ctimes: dict, err: dict, s: Shapes, piped: dict,
-                   built: dict, tcp: dict, live: dict) -> list:
+                   built: dict, tcp: dict, live: dict, load: dict) -> list:
     """The ``{"kernels": [...]}`` line's entries: one per main path and
     kernel, with that path's launches from its own run (counts set to 0
     just before it, read just after) and the kernel timed at that path's
@@ -3399,7 +3858,10 @@ def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
     label → its launches) with the three kernels of its path, timed at
     the serve shape; phase 4f's dirty run on phase 3's index (``live``:
     its launches) with the one kernel of the overlay path, timed at the
-    serve shape."""
+    serve shape; phase 4g's first depth-1 open-loop run of each traffic
+    (``load``: traffic → its launches) with the kernels of its path, the
+    SPLADE methods' timed at the serve shape and colbert's at C =
+    ndocs."""
     paths = [("serve_device", served["device"][0]["launches"], kname,
               times[kname]["batch"], err[kname], s.C) for kname in SOURCES]
     paths += [("front_door", door, kname, times[kname]["batch"], err[kname],
@@ -3428,6 +3890,11 @@ def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
     paths += [("live", live, "decompress_maxsim",
                times["decompress_maxsim"]["batch"], err["decompress_maxsim"],
                s.C)]
+    paths += [("load", load["splade"], kname, times[kname]["batch"],
+               err[kname], s.C) for kname in DOOR_KERNELS]
+    paths += [("load_colbert", load["colbert"], "fused_rerank",
+               ctimes["fused_rerank"], ctimes["fused_rerank"]["max_abs_err"],
+               s.ndocs)]
     out = []
     for path_name, launches, kname, t, max_err, C in paths:
         src, replaces = SOURCES[kname]
@@ -3519,6 +3986,10 @@ def main(argv=None) -> int:
         del build_corpus
         log(f"phase 4f live index: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+        load, load_launches = load_phase(sub_rng(args.seed, "load"), s, path,
+                                         topics, device)
+        log(f"phase 4g load: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         times = time_kernels(rng, s, device, peaks, path, topics, args.seed)
         ctimes = time_colbert(sub_rng(args.seed, "colbert timing"), s,
                               device, peaks, path)
@@ -3547,7 +4018,7 @@ def main(argv=None) -> int:
                 "card": name, "power_limit": limit}), flush=True)
     kernels = kernel_entries(served, colbert, door_launches, times, ctimes,
                              err, s, piped, built["serve"]["launches"],
-                             tcp_launches, live_launches)
+                             tcp_launches, live_launches, load_launches)
     print(json.dumps({"phase": "build", **built, "card": name,
                       "power_limit": limit}), flush=True)
     print(json.dumps({"phase": "stage1_breakdown", **times["stage1"],
@@ -3570,6 +4041,9 @@ def main(argv=None) -> int:
                       "power_limit": limit}), flush=True)
     print(json.dumps({"phase": "live", **live, "card": name,
                       "power_limit": limit}), flush=True)
+    for line in load:
+        print(json.dumps({"phase": "load", **line, "card": name,
+                          "power_limit": limit}), flush=True)
     log(f"chip_smoke wall, build included: "
         f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -18,12 +18,26 @@ import numpy as np
 import torch
 
 
+# rows per matmul: fewer cost a build more launches, more cost every
+# live upsert, which pads its document's few rows to one whole chunk
+CHUNK = 512
+
+
 def assign(points: torch.Tensor, centroids: torch.Tensor,
-           chunk: int = 8192):
+           chunk: int = CHUNK):
     """points: (N, d); centroids: (K, d) → (ids (N,) int32, sims (N,)
     fp32): each point's most similar centroid, the first of equals as
     ``jnp.argmax`` takes it. ``chunk`` rows at a time bound the
-    (chunk, K) similarity block. Refuses to run with TF32 allowed."""
+    (chunk, K) similarity block. Refuses to run with TF32 allowed.
+
+    Every matmul has exactly ``chunk`` rows: a last, partial chunk is
+    padded with zero rows. A BLAS picks its kernel, and with it the
+    order in which a dot product is summed, by the matrix shape (on the
+    CPU and on the card alike, a few rows take another route than a
+    full block), so without the padding a near-tie row could get
+    another id when a live upsert assigns its document's few rows alone
+    than when a rebuild assigns it inside a chunk. With it, a row's
+    sims do not depend on the rows that came with it."""
     # imported here: core.plaid imports the index builder, which imports
     # this module
     from repro_torch.core.plaid import check_ieee_fp32
@@ -33,10 +47,13 @@ def assign(points: torch.Tensor, centroids: torch.Tensor,
     sims = torch.empty(n, dtype=torch.float32, device=points.device)
     ct = centroids.T
     for lo in range(0, n, chunk):
-        s = points[lo:lo + chunk] @ ct
-        best, arg = s.max(dim=1)      # the first maximal index
-        sims[lo:lo + chunk] = best
-        ids[lo:lo + chunk] = arg
+        x = points[lo:lo + chunk]
+        m = x.shape[0]
+        if m < chunk:
+            x = torch.cat([x, x.new_zeros(chunk - m, x.shape[1])])
+        best, arg = (x @ ct)[:m].max(dim=1)   # the first maximal index
+        sims[lo:lo + m] = best
+        ids[lo:lo + m] = arg
     return ids, sims
 
 

@@ -5,8 +5,10 @@ never changes shape under traffic; mutability is layered beside it:
 
 * **Upserts** residual-encode the new document against the *existing*
   centroids and codec on the retriever's device (``kmeans.assign`` +
-  ``encode_residuals``, each row's result its own, so delta codes are
-  what a from-scratch rebuild assigns the same embeddings) and append
+  ``encode_residuals``; ``assign`` runs every matmul on
+  ``kmeans.CHUNK`` rows, so a row's code does not depend on the rows
+  assigned with it and delta codes are what a from-scratch rebuild
+  assigns the same embeddings) and append
   it to a delta segment in host RAM: per-doc centroid ids, packed
   residuals, SPLADE postings. Delta docs get append-only global pids
   ``base_n + j`` — stable across compactions, because a compaction

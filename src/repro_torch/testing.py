@@ -172,3 +172,59 @@ def assert_colbert_match(ref, dev, q_emb, want, got, *, what: str = ""
         pids, scores, route = colbert_tie_reference(ref, dev, q_emb, k)
         assert_topk_match(scores, pids, *got, what=f"{what} ({route} tie)")
         return route
+
+
+def near_tie_rows(centroids: torch.Tensor, n: int, seed: int = 0
+                  ) -> torch.Tensor:
+    """n unit rows, each the normalised sum of two distinct centroids:
+    its sims to the two are equal in exact arithmetic, so which one an
+    fp32 matmul ranks first rests on the matmul's rounding."""
+    K = centroids.shape[0]
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randperm(K, generator=g)[:n]
+    b = (a + torch.randint(1, K, (n,), generator=g)) % K
+    rows = centroids[a.to(centroids.device)] + centroids[b.to(
+        centroids.device)]
+    return rows / torch.linalg.norm(rows, dim=-1, keepdim=True)
+
+
+def assign_placements(rows: torch.Tensor, centroids: torch.Tensor,
+                      chunk: int, seed: int = 0) -> dict:
+    """``kmeans.assign`` on ``rows`` as a live upsert runs it — the first
+    L rows alone, for every L up to ``len(rows)`` — and as a build runs
+    it: inside a full ``chunk``-row chunk at three offsets, and inside a
+    partial last chunk (three lengths, at its start and its end), among
+    unit filler rows. → counts of the rows whose id, and whose best sim's
+    bits, differ from the first full-chunk placement's, and how many
+    rows were compared."""
+    from repro_torch.index.kmeans import assign
+    n, d = rows.shape
+    if not 0 < n < chunk:
+        raise ValueError(f"{n} rows do not fit the placements of a "
+                         f"{chunk}-row chunk")
+    g = torch.Generator().manual_seed(seed)
+    filler = torch.randn(2 * chunk, d, generator=g).to(rows.device)
+    filler /= torch.linalg.norm(filler, dim=-1, keepdim=True)
+
+    def placed(total: int, at: int):
+        pts = filler[:total].clone()
+        pts[at:at + n] = rows
+        ids, sims = assign(pts, centroids, chunk=chunk)
+        return ids[at:at + n], sims[at:at + n]
+
+    want_ids, want_sims = placed(chunk, 0)
+    runs = [placed(chunk, at) for at in ((chunk - n) // 2, chunk - n)]
+    for tail in sorted({n, (n + chunk) // 2, chunk - 1}):
+        runs += [placed(chunk + tail, chunk + at)
+                 for at in sorted({0, tail - n})]
+    runs += [assign(rows[:L], centroids, chunk=chunk)
+             for L in range(1, n + 1)]
+    out = {"placements": len(runs), "rows_compared": 0, "ids_differ": 0,
+           "sims_differ": 0}
+    for ids, sims in runs:
+        m = len(ids)
+        out["rows_compared"] += m
+        out["ids_differ"] += int((ids != want_ids[:m]).sum())
+        out["sims_differ"] += int((sims.view(torch.int32)
+                                   != want_sims[:m].view(torch.int32)).sum())
+    return out

@@ -38,6 +38,7 @@ from repro_torch.index import kmeans, residual
 from repro_torch.index.builder import (ColBERTIndex, build_colbert_index,
                                        write_index)
 from repro_torch.index.splade_index import build_splade_index
+from repro_torch.testing import assign_placements, near_tie_rows
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 INDEX_FILES = ("residuals.bin", "codes.bin", "centroids.npy",
@@ -466,3 +467,18 @@ def test_quickstart_driver_on_the_cpu():
         assert len(vals) == 4 and all(0 <= v <= 1 for v in vals)
     assert rows["hybrid"][0] > rows["splade"][0]
     assert "mmap pool access:" in res.stdout and "done." in res.stdout
+
+
+def test_assign_gives_a_row_the_same_bits_wherever_it_sits():
+    """A live upsert assigns a document's rows alone, a rebuild inside a
+    chunk: rows that are exact ties in real arithmetic get the same id
+    and sim bits alone (L = 1..180) as inside a full and a partial last
+    chunk, because every matmul has ``kmeans.CHUNK`` rows."""
+    g = torch.Generator().manual_seed(3)
+    cent = torch.randn(4096, 128, generator=g)
+    cent /= torch.linalg.norm(cent, dim=-1, keepdim=True)
+    rows = near_tie_rows(cent, 180, seed=4)
+    got = assign_placements(rows, cent, chunk=kmeans.CHUNK, seed=5)
+    assert got["placements"] == 180 + 2 + 5
+    assert got["rows_compared"] == 180 * 181 // 2 + 7 * 180
+    assert (got["ids_differ"], got["sims_differ"]) == (0, 0), got

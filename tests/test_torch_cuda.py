@@ -60,7 +60,8 @@ from repro_torch.serving.pipeline import (DEVICE, HOST, CandidateBatch,
 from repro_torch.serving.server import (RetrievalServer, tcp_query,
                                         wire_request)
 from repro_torch.testing import (REF_MARGIN, assert_colbert_match,
-                                 assert_topk_match)
+                                 assert_topk_match, assign_placements,
+                                 near_tie_rows)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 TIMEOUT = 30.0          # seconds: the bound on every wait of the pipeline
@@ -957,6 +958,23 @@ def test_build_on_card_matches_cpu(cuda, tmp_path):
                              "ivf_offsets.npy"):
             continue    # the tie's tokens, and the IVF lists they enter
         assert (card / name).read_bytes() == (host / name).read_bytes(), name
+
+
+def test_upsert_assignment_equals_chunked_at_near_ties(cuda):
+    """A live upsert assigns a document's L <= 180 rows alone; a rebuild
+    assigns the same rows inside ``kmeans.CHUNK``-row chunks. Rows that
+    are exact ties in real arithmetic between two of K=131,072 centroids
+    (d=128) get the same id and the same sim bits alone, for every L in
+    1..180, as inside a full chunk and a partial last chunk at several
+    offsets."""
+    g = torch.Generator().manual_seed(11)
+    cent = torch.randn(131072, 128, generator=g)
+    cent = (cent / torch.linalg.norm(cent, dim=-1, keepdim=True)).to(cuda)
+    rows = near_tie_rows(cent, 180, seed=12)
+    got = assign_placements(rows, cent, chunk=kmeans.CHUNK, seed=13)
+    print("near-tie placements:", got)
+    assert got["placements"] == 180 + 2 + 5
+    assert (got["ids_differ"], got["sims_differ"]) == (0, 0), got
 
 
 def test_live_trace_on_card(cuda, tmp_path):
