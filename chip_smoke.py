@@ -216,6 +216,49 @@ Phases, in order; any failure raises and the script exits non-zero:
              objects and the time of two full collections; no server,
              executor or client thread outlives a run. One ``load``
              line per run;
+4h. launcher — ``python -m repro_torch.launch.serve`` and
+             ``examples/serve_concurrent_torch.py`` as child processes
+             on the card, each killed in a ``finally``. (a) The launcher
+             on the phase-3 index (``--splade-backend device --max-batch
+             32 --batch-timeout-ms 5 --pipeline-depth 2
+             --pipeline-workers kind --port 0``): its start-up time to
+             ``RETRIEVAL_PORT=``; 32 connections opened at once, each
+             ``connect`` timed; phase 4e's kind of traffic (64 mixed
+             SPLADE-method and 32 colbert lines) over them twice, every
+             reply equal bit for bit to an in-process twin (the port's
+             ``build_or_load`` behind ``RetrievalServer`` with the same
+             settings), whose answers are held to ``build_or_load(...,
+             device="cpu")`` (the launcher's cap of 1,024 binds: through
+             a tie at a stage boundary where they differ) and whose run
+             launches the path's three kernels and no other; then one
+             request on each connection and SIGTERM: every one answered,
+             exit 0 within 60 s, the port refused; the child's
+             ``health`` after each turn names the twin's stages, the
+             device stage 1 and the depth-2 pipeline. In process, 32
+             connections at once to a front with the port's backlog and
+             to one with socketserver's 5, one turn each. (b) ``--live
+             --live-compact-every 8 --port 0`` on a copy of the
+             launcher's built-in index: queries, a delete of a pid in a
+             top-k, 8 upserts, the background compaction (``health``
+             polled until the generation bumps), each admin and query
+             reply equal to an in-process live twin fed the same
+             operations and one ``compact_live()``; SIGTERM, exit 0. (c)
+             Bounded load on the built-in corpus (3,000 docs, dim 64,
+             built on the card): at the launcher's defaults (hybrid,
+             max_batch 1, host stage 1; 64 requests at 200 QPS), and
+             with the device stage 1, max_batch 32, 256 requests
+             open-loop at 0.75 × phase 4g's μ_s, Zipf s=1.1, both
+             caches and an admission SLO between the cheap and the full
+             plan's warm cost: exit 0, 0 failed, every request accounted
+             for, the trace's unique and repeat counts ``zipf_trace``'s;
+             in process, the max_batch=1 run again with each stage 1,
+             for its launches and answers, held to the CPU engine, and
+             its two B=1 kernels on one request's inputs at this
+             corpus's shapes (d=64, K=256), held to their plain
+             versions and timed. (d) The example at ``--max-batch 32 --n
+             128 --tcp``: exit 0, its capacity line, four rate rows, the
+             TCP reply and "drained + stopped cleanly." The figures go
+             on a ``launcher`` line;
 5. time    — time each kernel with CUDA events at the serve shapes, and
              each at B=1, in an eager loop (the rerank tail's two
              kernels, MaxSim, the SPLADE kernel's two entry points and
@@ -240,7 +283,12 @@ index (``built_index``), phase 4e's first TCP turn at each depth
 (``tcp``, ``tcp_pipelined``) with the three kernels of its path, and
 phase 4f (b)'s dirty run (``live``) with decompress_maxsim, the only
 kernel of the overlay path, and phase 4g's first depth-1 open-loop run
-of each traffic (``load``, ``load_colbert``) with its path's kernels;
+of each traffic (``load``, ``load_colbert``) with its path's kernels,
+and phase 4h's in-process twin of the launcher (``launcher``) and its
+in-process max_batch=1 bounded loads (``launcher_b1`` with the host
+stage 1, ``launcher_b1_device``), whose B=1 kernels are held to their
+plain versions and timed at the built-in corpus's shapes (d=64,
+K=256);
 ``launches`` is that path's own run's count, and the times are at that path's candidate width (``C``).
 
 Arithmetic is IEEE fp32: TF32 is switched off for matmuls and cuDNN.
@@ -256,6 +304,8 @@ import gc
 import json
 import os
 import pathlib
+import re
+import select
 import shutil
 import signal
 import socket
@@ -1729,9 +1779,10 @@ class Conn:
     """A client's persistent connection: a line out, its reply in.
 
     Opening one waits for an admin line's reply, so that the server has
-    accepted it before the next is opened: the front listens with
-    ``socketserver``'s backlog of 5, and a burst of connections beyond
-    it has its SYNs dropped and retried after a second."""
+    accepted it before the next is opened: the front listened with
+    ``socketserver``'s backlog of 5 until phase 4h's repair, and a burst
+    of connections beyond it had its SYNs dropped and retried after a
+    second."""
 
     def __init__(self, port: int, live: bool = False):
         self.sock = socket.create_connection(("127.0.0.1", port),
@@ -3031,6 +3082,751 @@ def load_phase(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
+# phase 4h: the launcher and the example
+# ---------------------------------------------------------------------------
+
+LAUNCH_CONNS = 32        # connections opened at once
+LAUNCH_WAIT = 600        # seconds: the bound on every wait for a child
+LAUNCH_EXIT = 60         # seconds: a SIGTERM'd launcher must exit within
+# (a)'s turns over TCP: the launcher's first requests pay its cold start
+LAUNCH_TURNS = ("cold", "warm", "warm")
+# the in-process fronts timed against each other: the port's backlog
+# and socketserver's 5 (the JAX front's), one turn each; a turn at 5
+# waits out the SYN retries, about 7 s
+BACKLOG_TURNS = ("port", "five")
+# (c): the bounded loads on the launcher's built-in corpus
+LAUNCH_B1_N, LAUNCH_B1_QPS = 64, 200.0
+LAUNCH_LOAD_N, LAUNCH_LOAD_SKEW = 256, 1.1
+LAUNCH_EXAMPLE_N = 128
+REPORT_LINES = {
+    "offered": re.compile(
+        r"^offered (\S+) QPS → achieved (\S+); p50 (\S+) ms, p95 (\S+) "
+        r"ms, p99 (\S+) ms$"),
+    "trace": re.compile(
+        r"^trace: (\d+) unique / (\d+) repeats; outcomes: (\d+) cache "
+        r"hits, (\d+) degraded, (\d+) shed, (\d+) failed$"),
+    "caches": re.compile(
+        r"^caches: exact (\d+)h/(\d+)m \(size (\d+)/(\d+)\), stage1 "
+        r"(\d+)h/(\d+)m \(size (\d+)/(\d+)\)$"),
+    "admission": re.compile(
+        r"^admission: (\d+) full, (\d+) degraded, (\d+) shed \(SLO (\S+) "
+        r"ms\)$"),
+    "working_set": re.compile(r"^mmap working set: (\S+)% of pool$"),
+}
+EXAMPLE_LINES = {
+    "capacity": re.compile(r"^service time (\S+) ms → capacity ≈ (\S+) QPS "),
+    "rate": re.compile(r"^\s*(\S+)/s\s+(\S+)ms\s+(\S+)ms\s+(\S+)ms\s+(\S+)/s$"),
+    "response": re.compile(r"^response: \{'qid': 0, 'pids': \[[\d, ]+\], "),
+    "drained": re.compile(r"^drained \+ stopped cleanly\.$"),
+}
+
+
+class Child:
+    """A launcher or example process of the port: its standard output
+    read line by line on a thread, its standard error into a file.
+    ``kill`` in a ``finally`` ends it whatever happened."""
+
+    def __init__(self, label: str, argv: list, tmp: pathlib.Path):
+        self.label = label
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   TMPDIR=str(tmp))
+        tmp.mkdir(parents=True, exist_ok=True)
+        self.err_path = tmp / f"{label}.stderr"
+        self._err = open(self.err_path, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, *argv], cwd=ROOT, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=self._err)
+        self.lines, self._cond = [], threading.Condition()
+        self._reader = threading.Thread(target=self._read, daemon=True,
+                                        name=f"child-{label}-stdout")
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            with self._cond:
+                self.lines.append(line.rstrip("\n"))
+                self._cond.notify_all()
+        with self._cond:
+            self.lines.append(None)        # end of the output
+            self._cond.notify_all()
+
+    def fail(self, msg: str):
+        self.kill()
+        err = self.err_path.read_text()[-3000:]
+        out = "\n".join(ln for ln in self.lines[-20:] if ln is not None)
+        raise RuntimeError(f"{self.label}: {msg} (exit {self.proc.poll()})"
+                           f"\n--- stdout\n{out}\n--- stderr\n{err}")
+
+    def wait_line(self, prefix: str) -> str:
+        """The first output line starting with ``prefix``."""
+        deadline = time.perf_counter() + LAUNCH_WAIT
+        with self._cond:
+            while True:
+                for line in self.lines:
+                    if line is None:
+                        break
+                    if line.startswith(prefix):
+                        return line
+                if None in self.lines:
+                    break
+                left = deadline - time.perf_counter()
+                if left <= 0:
+                    break
+                self._cond.wait(left)
+        self.fail(f"no line {prefix!r}")
+
+    def finish(self, timeout: float = LAUNCH_WAIT) -> int:
+        """Wait for the exit; → the exit code (a timeout fails)."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.fail(f"still running after {timeout} s")
+        self._reader.join(timeout=LAUNCH_WAIT)
+        self._err.close()
+        return rc
+
+    def output(self) -> list:
+        return [ln for ln in self.lines if ln is not None]
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=LAUNCH_WAIT)
+        self._err.close()
+
+
+def device_flags(device) -> list:
+    """A child's device flags: none on the card (the default), ``--device
+    cpu`` in a rehearsal on the CPU."""
+    return [] if device.type == "cuda" else ["--device", "cpu"]
+
+
+def launch_argv(*flags, device) -> list:
+    """``python -m repro_torch.launch.serve`` with ``flags``."""
+    return ["-m", "repro_torch.launch.serve", *map(str, flags),
+            *device_flags(device)]
+
+
+class OpenConn(Conn):
+    """A :class:`Conn` over a socket already connected."""
+
+    def __init__(self, sock):
+        self.sock = sock
+        self.rfile = sock.makefile("rb")
+
+
+def connect_burst(port: int, n: int = LAUNCH_CONNS) -> tuple:
+    """Open ``n`` connections at once (threads behind a barrier), each
+    ``connect`` timed. → (the sockets, each connect's ms)."""
+    barrier = threading.Barrier(n)
+    socks, ms, errors = [None] * n, [0.0] * n, []
+
+    def connect(i):
+        try:
+            barrier.wait(timeout=LAUNCH_WAIT)
+            t0 = time.perf_counter()
+            socks[i] = socket.create_connection(("127.0.0.1", port),
+                                                timeout=LAUNCH_WAIT)
+            ms[i] = (time.perf_counter() - t0) * 1e3
+        except Exception as e:            # reported below, on the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=connect, args=(i,), daemon=True,
+                                name=f"tcp-connect-{i}") for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=LAUNCH_WAIT)
+    if errors or any(t.is_alive() for t in threads):
+        for sk in socks:
+            if sk is not None:
+                sk.close()
+        raise RuntimeError(f"connect burst: {errors[:3]}")
+    return socks, ms
+
+
+def connect_figures(ms) -> dict:
+    ms = np.asarray(ms)
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "max_ms": float(ms.max()), "over_1s": int((ms >= 1000).sum())}
+
+
+def backlog_turns(retrieval) -> dict:
+    """32 connections at once to an in-process front that accepts on a
+    thread, with the port's backlog and with socketserver's 5, in turns
+    (:data:`BACKLOG_TURNS`). → {"port" | "five": [figures per turn]}."""
+    from repro_torch.serving.server import TCPRetrievalServer
+
+    class FiveBacklog(TCPRetrievalServer):
+        request_queue_size = 5          # socketserver's, the JAX front's
+
+    out = {"port": [], "five": []}
+    for turn in BACKLOG_TURNS:
+        cls = TCPRetrievalServer if turn == "port" else FiveBacklog
+        tcp = cls(("127.0.0.1", 0), retrieval)
+        serving = threading.Thread(target=tcp.serve_forever, daemon=True,
+                                   name="tcp-serve-backlog")
+        serving.start()
+        socks = []
+        try:
+            socks, ms = connect_burst(tcp.server_address[1])
+        finally:
+            for sk in socks:
+                sk.close()
+            tcp.stop_accepting()
+            serving.join(timeout=LAUNCH_WAIT)
+        out[turn].append(dict(connect_figures(ms),
+                              backlog=cls.request_queue_size))
+    left = live_threads()
+    if left:
+        raise RuntimeError(f"backlog turns left threads running: {left}")
+    return out
+
+
+def report_figures(child: Child, n: int) -> dict:
+    """The bounded load's report lines, parsed; fails unless every line
+    has the JAX launcher's words, nothing failed and every request is
+    accounted for."""
+    found = {}
+    for line in child.output():
+        for name, pat in REPORT_LINES.items():
+            m = pat.match(line)
+            if m:
+                found[name] = [float(g) for g in m.groups()]
+    for name in ("offered", "trace", "working_set"):
+        if name not in found:
+            child.fail(f"no {name} line in the report")
+    off, ach, p50, p95, p99 = found["offered"]
+    unique, repeats, hits, degraded, shed, failed = map(
+        int, found["trace"])
+    if failed or unique + repeats != n:
+        child.fail(f"{failed} failed, {unique} + {repeats} submitted of {n}")
+    out = {"offered_qps": off, "achieved_qps": ach, "p50_ms": p50,
+           "p95_ms": p95, "p99_ms": p99, "unique": unique,
+           "repeats": repeats, "cache_hits": hits, "degraded": degraded,
+           "shed": shed, "failed": failed, "served": n - shed - failed,
+           "working_set_pct": found["working_set"][0]}
+    if "caches" in found:
+        out["exact_hits"], out["exact_misses"] = map(
+            int, found["caches"][:2])
+    if "admission" in found:
+        full, deg, sheds, slo = found["admission"]
+        out["admission"] = {"full": int(full), "degraded": int(deg),
+                            "shed": int(sheds), "slo_ms": slo}
+        if int(sheds) != shed or degraded > int(deg):
+            child.fail(f"outcomes {out} against admission {out['admission']}")
+    return out
+
+
+def child_turn_stages(child: Child, turn: str, before: dict, after: dict,
+                      twin: dict) -> dict:
+    """The launcher's own records of a turn, from its ``health`` before
+    and after: micro-batches formed, the pipeline at depth 2 for each
+    method, and the stages that ran — the twin's stages, each launching
+    where the twin's launches, the SPLADE stage 1 on the card. A child
+    that ignored ``--splade-backend device`` or the pipeline flags fails
+    here, whichever route its answers took. → {stage: wall s in the
+    turn}."""
+    ran = {}
+    for name, r in after["stages"].items():
+        was = before["stages"].get(name, {})
+        d = {k: r[k] - was.get(k, 0) for k in ("dispatches",
+                                               "device_dispatches",
+                                               "wall_s")}
+        if d["dispatches"]:
+            ran[name] = d
+    pipe = after.get("pipeline", {})
+    faults = []
+    if after["batches"] <= before["batches"]:
+        faults.append("no micro-batch")
+    if pipe.get("depth") != 2 or set(pipe.get("queues", ())) != set(
+            DOOR_METHODS):
+        faults.append(f"pipeline {pipe}")
+    if {n: r["device_dispatches"] > 0 for n, r in ran.items()} != twin:
+        faults.append(f"stages {ran} against the twin's {twin}")
+    if not ran.get("splade_stage1", {}).get("device_dispatches"):
+        faults.append("the SPLADE stage 1 ran on the host")
+    if faults:
+        child.fail(f"{turn} turn: {'; '.join(faults)}")
+    return {n: r["wall_s"] for n, r in ran.items()}
+
+
+def builtin_requests(corpus, trace, method: str, k: int = 20) -> list:
+    """The launcher's bounded-load requests for ``trace``."""
+    from repro_torch.serving.engine import Request
+    return [Request(qid=i, method=method, q_emb=corpus["q_embs"][q],
+                    term_ids=corpus["q_term_ids"][q],
+                    term_weights=corpus["q_term_weights"][q], k=k,
+                    trace_id=int(q)) for i, q in enumerate(trace)]
+
+
+def launcher_full(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
+                  root: pathlib.Path, device, counted: dict) -> tuple:
+    """(a): the launcher on the phase-3 index at full width, against an
+    in-process twin. → (figures, the twin run's launches)."""
+    from repro_torch.launch.serve import build_or_load
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.server import RetrievalServer, wire_request
+
+    reqs = (make_requests(rng, s, topics, s.n_requests)
+            + colbert_requests(rng, s, min(32, s.n_requests), qid0=1000))
+    lines = {r.qid: wire_line(r) for r in reqs}
+    reqs = [wire_request(json.loads(ln)) for ln in lines.values()]
+    by_qid = {r.qid: r for r in reqs}
+
+    # the twin: the launcher's retriever and server settings, in process
+    _, _, retr = build_or_load(str(path), "mmap", splade_backend="device",
+                               device=device)
+    engine = ServeEngine(retr, pipeline_depth=2, pipeline_workers="kind")
+    server = RetrievalServer(engine, max_batch=s.B, batch_timeout_ms=5.0)
+    server.start()
+    try:
+        warm = [server.submit(r) for r in fresh(reqs)]
+        for f in warm:
+            f.result(timeout=LAUNCH_WAIT)
+        # as the TCP clients below ask: 32 closed-loop clients
+        reset_counts(retr, counted)
+        want, lat, wall = closed_loop(
+            [lambda r: server.submit(fresh([r])[0]).result(
+                timeout=LAUNCH_WAIT)] * LAUNCH_CONNS,
+            [(r.qid, r) for r in reqs])
+        launches = read_counts(counted)
+        # the stages the twin ran, each with whether it launches
+        twin_stages = {n: r["device_dispatches"] > 0 for n, r in
+                       retr.pipeline_stats.snapshot()["stages"].items()
+                       if r["dispatches"]}
+    finally:
+        server.shutdown_gracefully()
+    check_launches("launcher twin", launches, DOOR_KERNELS)
+    in_process = {"turn": "in_process", "qps": len(want) / wall,
+                  "p50_ms": float(np.percentile(lat, 50)),
+                  "p99_ms": float(np.percentile(lat, 99))}
+    _, _, cpu_retr = build_or_load(str(path), "mmap", device="cpu")
+    routes = hold_to_cpu(ServeEngine(cpu_retr), {"mmap": retr.searcher},
+                         [(r, want[r.qid], "mmap") for r in reqs], s)
+    log(f"launcher (a): the twin's {len(reqs)} answers match the CPU "
+        f"engine (through a tie at a stage boundary: {routes or 'none'}); "
+        f"its launches {launches}")
+    figures = {"requests": len(reqs), "twin_launches": launches,
+               "tie_routes": routes,
+               "backlog": backlog_turns(server)}
+    log(f"launcher: 32 connections at once, in process: "
+        f"{figures['backlog']}")
+
+    child = Child("launcher_full", launch_argv(
+        "--index-dir", path, "--splade-backend", "device", "--max-batch",
+        s.B, "--batch-timeout-ms", 5, "--pipeline-depth", 2,
+        "--pipeline-workers", "kind", "--port", 0, device=device),
+        root / "full")
+    conns = []
+    try:
+        port = int(child.wait_line("RETRIEVAL_PORT=").split("=")[1])
+        figures["startup_s"] = time.perf_counter() - child.t0
+        socks, ms = connect_burst(port)
+        conns = [OpenConn(sk) for sk in socks]
+        figures["connect"] = connect_figures(ms)
+        turns = [in_process]
+        before = conns[0].ask(b'{"op": "health"}\n')["health"]
+        for turn in LAUNCH_TURNS:
+            got, lat, wall = closed_loop(
+                [c.ask for c in conns],
+                [(r.qid, lines[r.qid]) for r in reqs])
+            for qid, reply in got.items():
+                hold_reply(f"launcher {turn}", reply, want[qid], engine,
+                           by_qid[qid])
+            # the child's own records of the turn: batches, stage walls
+            after = conns[0].ask(b'{"op": "health"}\n')["health"]
+            walls = child_turn_stages(child, turn, before, after,
+                                      twin_stages)
+            turns.append({"turn": turn, "qps": len(got) / wall,
+                          "p50_ms": float(np.percentile(lat, 50)),
+                          "p99_ms": float(np.percentile(lat, 99)),
+                          "batches": after["batches"] - before["batches"],
+                          "stage_wall_s": walls})
+            before = after
+        figures["turns"] = turns
+        log(f"launcher (a): started in {figures['startup_s']:.2f} s; 32 "
+            f"connects {figures['connect']}; over TCP {turns}; every "
+            "reply equal to the twin's bit for bit")
+
+        # the drain: one request on each connection, then SIGTERM
+        drain = reqs[:LAUNCH_CONNS // 2] + reqs[-(LAUNCH_CONNS // 2):]
+        for c, r in zip(conns, drain):
+            c.sock.sendall(lines[r.qid])
+        ready, _, _ = select.select([c.sock for c in conns], [], [], 0)
+        in_flight = len(conns) - len(ready)
+        t0 = time.perf_counter()
+        child.proc.send_signal(signal.SIGTERM)
+        replies = [c.rfile.readline() for c in conns]
+        replies_s = time.perf_counter() - t0
+        rc = child.finish(LAUNCH_EXIT)
+        drain_s = time.perf_counter() - t0
+        if rc != 0:
+            child.fail("exit after SIGTERM")
+        if not in_flight:
+            raise RuntimeError("launcher (a): every drain request was "
+                               "answered before SIGTERM")
+        for r, raw in zip(drain, replies):
+            hold_reply("launcher drain", json.loads(raw or b"{}"),
+                       want[r.qid], engine, r)
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=10).close()
+            raise RuntimeError("launcher (a): the port takes connections "
+                               "after the drain")
+        except ConnectionRefusedError:
+            pass
+        figures.update(in_flight_at_sigterm=in_flight, replies_s=replies_s,
+                       drain_s=drain_s, exit_code=rc)
+        log(f"launcher (a): SIGTERM with {in_flight} of {len(drain)} in "
+            f"flight: every one answered, exit {rc} in {drain_s:.3f} s, "
+            "the port refuses connections")
+    finally:
+        for c in conns:
+            c.close()
+        child.kill()
+    return figures, launches
+
+
+def launcher_live(corpus, built: pathlib.Path, root: pathlib.Path,
+                  device) -> dict:
+    """(b): ``--live --live-compact-every 8`` on a copy of the built-in
+    index, against an in-process live twin on another copy, whose
+    answers are held to a live twin on the CPU fed the same operations
+    (colbert's only while the index is clean: the tie rule knows no
+    delta or tombstone)."""
+    from repro_torch.launch.serve import build_or_load
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.server import wire_request
+
+    for name in ("child", "twin", "cpu"):
+        shutil.copytree(built, root / "live" / name)
+    _, _, retr = build_or_load(str(root / "live" / "twin"), "mmap",
+                               device=device)
+    retr.enable_live()
+    twin = ServeEngine(retr)
+    _, _, cpu_retr = build_or_load(str(root / "live" / "cpu"), "mmap",
+                                   device="cpu")
+    cpu_retr.enable_live()
+    cpu = ServeEngine(cpu_retr)
+    child = Child("launcher_live", launch_argv(
+        "--index-dir", root / "live" / "child", "--live",
+        "--live-compact-every", 8, "--port", 0, device=device),
+        root / "live_tmp")
+    checked = {"admin": 0, "queries": 0, "held_to_cpu": 0}
+    conn = None
+    try:
+        port = int(child.wait_line("RETRIEVAL_PORT=").split("=")[1])
+        conn = Conn(port, live=True)
+
+        def admin(msg: dict, in_process):
+            got = conn.ask((json.dumps(msg) + "\n").encode())
+            if got != in_process:
+                raise AssertionError(f"launcher live {msg['op']}: over TCP "
+                                     f"{got}, in process {in_process}")
+            checked["admin"] += 1
+
+        def health(gen: int):
+            for _ in range(int(LAUNCH_WAIT / 0.05)):
+                got = conn.ask(b'{"op": "health"}\n')["health"]
+                if got["index_generation"] >= gen:
+                    break
+                time.sleep(0.05)
+            want = {"live": twin.live_stats(),
+                    "index_generation": retr.index_generation}
+            if {k: got[k] for k in want} != want:
+                raise AssertionError(f"launcher live health: {got} against "
+                                     f"{want}")
+            checked["admin"] += 1
+
+        def queries(first: int) -> dict:
+            out, held = {}, []
+            stats = retr.live_stats()
+            clean = not (stats["delta_docs"] or stats["tombstones"])
+            for i, method in enumerate(DOOR_METHODS):
+                msg = json.loads(wire_line(corpus_request(corpus, first + i,
+                                                          method)))
+                got = conn.ask((json.dumps(msg) + "\n").encode())
+                want = twin.process(wire_request(msg))
+                hold_reply("launcher live", got, want, twin,
+                           wire_request(msg))
+                if method != "colbert" or clean:
+                    held.append((wire_request(msg), want, "mmap"))
+                out[method] = got
+                checked["queries"] += 1
+            hold_to_cpu(cpu, {"mmap": retr.searcher}, held, FULL)
+            checked["held_to_cpu"] += len(held)
+            return out
+
+        def upsert(j: int):
+            doc = {"doc_emb": corpus["doc_embs"][j][:corpus["doc_lens"][j]],
+                   "term_ids": corpus["doc_term_ids"][j],
+                   "term_weights": corpus["doc_term_weights"][j]}
+            pid = twin.live_upsert(**doc)
+            if cpu.live_upsert(**doc) != pid:
+                raise AssertionError("launcher live: the CPU twin's pid")
+            admin({"op": "upsert", **{k: np.asarray(v).tolist()
+                                      for k, v in doc.items()}},
+                  {"ok": True, "pid": pid})
+
+        victim = queries(0)["hybrid"]["pids"][0]
+        cpu.live_delete(victim)
+        admin({"op": "delete", "pid": victim},
+              {"ok": twin.live_delete(victim)})
+        if victim in queries(0)["hybrid"]["pids"]:
+            raise AssertionError(f"launcher live: deleted pid {victim} "
+                                 "still answered")
+        queries(4)
+        for j in range(4):
+            upsert(j)
+        queries(8)
+        for j in range(4, 8):
+            upsert(j)
+        compacted = twin.live_compact()["compacted"]
+        cpu.live_compact()
+        health(retr.index_generation)
+        queries(12)
+        admin({"op": "live_stats"}, {"ok": True, "live": twin.live_stats()})
+        conn.close()
+        conn = None
+        child.proc.send_signal(signal.SIGTERM)
+        rc = child.finish(LAUNCH_EXIT)
+        if rc != 0:
+            child.fail("exit after SIGTERM")
+    finally:
+        if conn is not None:
+            conn.close()
+        child.kill()
+    log(f"launcher (b): --live: {checked['admin']} admin replies equal the "
+        f"twin's, {checked['queries']} query replies bit for bit, "
+        f"{checked['held_to_cpu']} of the twin's answers held to the CPU "
+        f"twin's, the "
+        f"AutoCompactor's generation {retr.index_generation} ({compacted} "
+        f"docs) the twin's; exit {rc} after SIGTERM")
+    return dict(checked, generation=retr.index_generation,
+                compacted=compacted, exit_code=rc)
+
+
+def builtin_b1_kernels(corpus, retr, device, peaks) -> dict:
+    """The max_batch=1 hybrid path's two kernels at the built-in corpus's
+    own shapes (d=64, K=256, nbits=4; one request's query and its
+    first_k stage-1 candidates, as the path gathers them), which phase
+    2 and 5's d=128 inputs do not reach (the tile shape follows d):
+    decompress_maxsim held to its plain version on the card (allclose),
+    the SPLADE top-k entry to the CPU's plain version bit for bit; each
+    timed as phase 5 times it, against its bound. → {kernel: timing
+    dict with ``max_abs_err``}."""
+    import torch
+    from repro_torch.core.plaid import pad_query_batch_host
+    from repro_torch.kernels.fused_rerank.ref import stable_topk
+    from repro_torch.kernels.splade_score.ops import splade_row_topk_batch
+    from repro_torch.kernels.splade_score.ref import (
+        splade_row_scores_batch_ref)
+
+    searcher, k = retr.searcher, retr.params.first_k
+    tids, tw = [corpus["q_term_ids"][0]], [corpus["q_term_weights"][0]]
+    cache = retr.splade_device_cache()
+    pids, _ = cache.score_topk(tids, tw, k)
+    q, q_valid = pad_query_batch_host([corpus["q_embs"][0]])
+    codes, packed, valid = searcher.gather_tokens_batch(pids)
+    q, q_valid, codes, packed, valid, cmask = searcher.to_device(
+        q, q_valid, codes, packed, valid, pids >= 0)
+    x = dict(q=q, packed=packed, cids=codes, valid=valid, cmask=cmask,
+             q_valid=q_valid, centroids=searcher.centroids,
+             bw=searcher.bucket_weights)
+    s = dataclasses.replace(FULL, B=1, Lq=q.shape[1], C=k,
+                            d=searcher.centroids.shape[1],
+                            K=searcher.centroids.shape[0])
+    out = {"shapes": {"B": 1, "Lq": s.Lq, "C": k, "Ld": valid.shape[-1],
+                      "d": s.d, "K": s.K, "n_docs": cache.n_docs}}
+    out["decompress_maxsim"] = dict(
+        measure(tile_fns(x, False), lambda: bound(x, s, peaks, False),
+                graph=True),
+        max_abs_err=tail_errors(x)["decompress_maxsim"])
+
+    rows, w = kernel_rows(cache, tids, tw)
+    args = (cache.row_pids, cache.row_imps, rows, w)
+    tp, ts = splade_row_topk_batch(*args, n_docs=cache.n_docs, k=k)
+    hp, hs = splade_row_topk_batch(*(a.cpu() for a in args),
+                                   n_docs=cache.n_docs, k=k)
+    if not (torch.equal(tp.cpu(), hp) and torch.equal(
+            ts.cpu().view(torch.int32), hs.view(torch.int32))):
+        raise AssertionError("built-in corpus: splade top-k != plain")
+    fin = torch.isfinite(hs)
+    out["splade_topk"] = dict(
+        measure({"ms": lambda: splade_row_topk_batch(
+                    *args, n_docs=cache.n_docs, k=k),
+                 "plain": lambda: stable_topk(splade_row_scores_batch_ref(
+                    *args, cache.n_docs), k)},
+                lambda: splade_bound(cache, rows, w, peaks, k), graph=True),
+        max_abs_err=(ts.cpu()[fin] - hs[fin]).abs().max().item())
+    log(f"launcher (c): the B=1 kernels at the built-in corpus's shapes "
+        f"{out}")
+    return out
+
+
+def launcher_bounded(corpus, built: pathlib.Path, root: pathlib.Path,
+                     device, mu_s: float, counted: dict, peaks) -> tuple:
+    """(c): the bounded load at the launcher's defaults and at full
+    options, each in a child on the built-in corpus; in process, the
+    same index's stage costs for the admission SLO, the max_batch=1
+    run's launches and answers (held to the CPU engine) with either
+    stage 1, and its kernels at this corpus's shapes. → (figures,
+    {path: launches})."""
+    from repro_torch.launch.serve import build_or_load
+    from repro_torch.serving.admission import AdmissionController
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.loadgen import run_poisson_load, zipf_trace
+    from repro_torch.serving.server import RetrievalServer
+
+    n_unique = len(corpus["q_embs"])
+    rr = np.arange(LAUNCH_B1_N) % n_unique
+    launches, warm_b1 = {}, {}
+    _, _, retr = build_or_load(str(built), "mmap", splade_backend="device",
+                               device=device)
+    _, _, cpu_retr = build_or_load(str(built), "mmap", device="cpu")
+    cpu = ServeEngine(cpu_retr)
+    for label, backend in (("launcher_b1", "host"),
+                           ("launcher_b1_device", "device")):
+        retr.set_splade_backend(backend)
+        server = RetrievalServer(ServeEngine(retr))    # max_batch=1
+        server.start()
+        reqs, got = builtin_requests(corpus, rr, "hybrid"), []
+        try:
+            run_poisson_load(server, builtin_requests(corpus, rr[:8],
+                                                      "hybrid"), qps=1e6)
+            reset_counts(retr, counted)
+            res = run_poisson_load(server, fresh(reqs), qps=LAUNCH_B1_QPS,
+                                   seed=0, on_result=got.append)
+            launches[label] = read_counts(counted)
+        finally:
+            server.shutdown_gracefully()
+        expect_launches(label, launches[label], {
+            "decompress_maxsim": LAUNCH_B1_N,
+            "splade_topk": LAUNCH_B1_N if backend == "device" else 0})
+        if res.failed or sorted(r.qid for r in got) != list(range(len(rr))):
+            raise RuntimeError(f"{label}: {res.failed} failed, "
+                               f"{len(got)} of {len(rr)} answered")
+        hold_to_cpu(cpu, {"mmap": retr.searcher},
+                    [(reqs[r.qid], r, "mmap") for r in got], FULL)
+        # warm, as the child is not: the same load after 8 requests
+        warm_b1[label] = {k: finite(v) for k, v in res.summary().items()}
+    log(f"launcher (c): the max_batch=1 answers with each stage 1 match "
+        f"the CPU engine")
+    b1_kernels = builtin_b1_kernels(corpus, retr, device, peaks)
+
+    # the SLO between the cheap and the full plan's cost, warm, at the
+    # child's batch
+    eng = ServeEngine(retr)
+    batch = builtin_requests(corpus, np.arange(32), "hybrid")
+    eng.process_batch(fresh(batch))
+    retr.reset_stage_stats()
+    eng.process_batch(fresh(batch))
+    stage1_ms, tail_ms, _ = AdmissionController.stage_costs(
+        retr.pipeline_stats.snapshot()["stages"])
+    slo_ms = stage1_ms + tail_ms / 2
+    rate = 0.75 * mu_s
+    runs = {}
+    for label, flags, trace in (
+            ("defaults", ("--n", LAUNCH_B1_N, "--qps", LAUNCH_B1_QPS), rr),
+            ("options", ("--splade-backend", "device", "--max-batch", 32,
+                         "--n", LAUNCH_LOAD_N, "--arrival-rate", rate,
+                         "--skew", LAUNCH_LOAD_SKEW, "--cache-exact", 256,
+                         "--cache-stage1", 256, "--admission-slo-ms",
+                         slo_ms),
+             zipf_trace(LAUNCH_LOAD_N, n_unique, skew=LAUNCH_LOAD_SKEW,
+                        seed=0))):
+        child = Child(f"launcher_{label}", launch_argv(*flags,
+                                                       device=device),
+                      root / f"bounded_{label}")
+        try:
+            rc = child.finish()
+            if rc != 0:
+                child.fail("bounded load")
+            fig = report_figures(child, len(trace))
+        finally:
+            child.kill()
+        unique = len(set(trace.tolist()))
+        if (fig["unique"], fig["repeats"]) != (unique, len(trace) - unique):
+            raise AssertionError(f"launcher {label}: trace {fig} against "
+                                 f"{unique} unique of {len(trace)}")
+        fig.update(exit_code=rc, wall_s=time.perf_counter() - child.t0,
+                   flags=[str(f) for f in flags])
+        runs[label] = fig
+        log(f"launcher (c) {label}: exit {rc}, {fig}")
+    log(f"launcher (c): in process, warm, max_batch=1: {warm_b1}")
+    return {"stage1_ms": stage1_ms, "tail_ms": tail_ms, "slo_ms": slo_ms,
+            "arrival_rate": rate, "runs": runs,
+            "in_process_b1": warm_b1, "b1_kernels": b1_kernels}, launches
+
+
+def example_run(root: pathlib.Path, device) -> dict:
+    """(d): ``examples/serve_concurrent_torch.py --max-batch 32 --n 128
+    --tcp``."""
+    child = Child("example", [
+        "examples/serve_concurrent_torch.py", "--max-batch", "32", "--n",
+        str(LAUNCH_EXAMPLE_N), "--tcp", *device_flags(device)],
+        root / "example")
+    try:
+        rc = child.finish()
+        if rc != 0:
+            child.fail("example")
+        found = {name: [] for name in EXAMPLE_LINES}
+        for line in child.output():
+            for name, pat in EXAMPLE_LINES.items():
+                m = pat.match(line)
+                if m:
+                    found[name].append([float(g) for g in m.groups()])
+        want = {"capacity": 1, "rate": 4, "response": 1, "drained": 1}
+        if {n: len(v) for n, v in found.items()} != want:
+            child.fail(f"example output: {found}")
+    finally:
+        child.kill()
+    out = {"exit_code": rc, "wall_s": time.perf_counter() - child.t0,
+           "service_ms": found["capacity"][0][0],
+           "capacity_qps": found["capacity"][0][1],
+           "rates": [dict(zip(("offered_qps", "p50_ms", "p95_ms", "p99_ms",
+                               "achieved_qps"), row))
+                     for row in found["rate"]]}
+    log(f"launcher (d): the example: exit {rc}, {out}")
+    return out
+
+
+def launcher_phase(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
+                   device, mu_s: float, peaks) -> tuple:
+    """Phase 4h (see the module docstring). → (the ``launcher`` line's
+    figures, {path: launches})."""
+    from repro_torch.launch.serve import build_or_load
+    counted = counted_kernels()
+    root = path / "launcher"
+    t0 = time.perf_counter()
+    corpus, _, _ = build_or_load(str(root / "builtin"), "mmap",
+                                 device=device)
+    out = {"builtin_build_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    out["full"], twin = launcher_full(rng, s, path, topics, root, device,
+                                      counted)
+    out["full_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["live"] = launcher_live(corpus, root / "builtin", root, device)
+    out["live_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["bounded"], launches = launcher_bounded(
+        corpus, root / "builtin", root, device, mu_s, counted, peaks)
+    out["bounded_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["example"] = example_run(root, device)
+    out["example_s"] = time.perf_counter() - t0
+    launches["launcher"] = twin
+    out["exit_codes"] = {
+        "full": out["full"]["exit_code"], "live": out["live"]["exit_code"],
+        **{f"bounded_{k}": v["exit_code"]
+           for k, v in out["bounded"]["runs"].items()},
+        "example": out["example"]["exit_code"]}
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 3b: the index build on the card
 # ---------------------------------------------------------------------------
 
@@ -3843,7 +4639,8 @@ SOURCES = {
 
 def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
                    ctimes: dict, err: dict, s: Shapes, piped: dict,
-                   built: dict, tcp: dict, live: dict, load: dict) -> list:
+                   built: dict, tcp: dict, live: dict, load: dict,
+                   launcher: dict, builtin: dict) -> list:
     """The ``{"kernels": [...]}`` line's entries: one per main path and
     kernel, with that path's launches from its own run (counts set to 0
     just before it, read just after) and the kernel timed at that path's
@@ -3861,7 +4658,13 @@ def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
     serve shape; phase 4g's first depth-1 open-loop run of each traffic
     (``load``: traffic → its launches) with the kernels of its path, the
     SPLADE methods' timed at the serve shape and colbert's at C =
-    ndocs."""
+    ndocs; phase 4h's twin of the launcher at full width (``launcher``:
+    path → its launches) with the three kernels of its path, timed at
+    the serve shape, and its in-process runs of the max_batch=1 bounded
+    load with the host and the device stage 1 (``launcher_b1``,
+    ``launcher_b1_device``) with their B=1 kernels, held to their plain
+    versions and timed at the built-in corpus's own shapes (``builtin``:
+    kernel → its timing dict, C = first_k)."""
     paths = [("serve_device", served["device"][0]["launches"], kname,
               times[kname]["batch"], err[kname], s.C) for kname in SOURCES]
     paths += [("front_door", door, kname, times[kname]["batch"], err[kname],
@@ -3895,6 +4698,16 @@ def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
     paths += [("load_colbert", load["colbert"], "fused_rerank",
                ctimes["fused_rerank"], ctimes["fused_rerank"]["max_abs_err"],
                s.ndocs)]
+    paths += [("launcher", launcher["launcher"], kname,
+               times[kname]["batch"], err[kname], s.C)
+              for kname in DOOR_KERNELS]
+    paths += [(label, launcher[label], kname, builtin[kname],
+               builtin[kname]["max_abs_err"], builtin["shapes"]["C"])
+              for label, knames in (
+                  ("launcher_b1", ("decompress_maxsim",)),
+                  ("launcher_b1_device", ("splade_topk",
+                                          "decompress_maxsim")))
+              for kname in knames]
     out = []
     for path_name, launches, kname, t, max_err, C in paths:
         src, replaces = SOURCES[kname]
@@ -3990,6 +4803,11 @@ def main(argv=None) -> int:
                                          topics, device)
         log(f"phase 4g load: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+        launcher, launcher_launches = launcher_phase(
+            sub_rng(args.seed, "launcher"), s, path, topics, device,
+            load[0]["mu_s"], peaks)
+        log(f"phase 4h launcher: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         times = time_kernels(rng, s, device, peaks, path, topics, args.seed)
         ctimes = time_colbert(sub_rng(args.seed, "colbert timing"), s,
                               device, peaks, path)
@@ -4018,7 +4836,9 @@ def main(argv=None) -> int:
                 "card": name, "power_limit": limit}), flush=True)
     kernels = kernel_entries(served, colbert, door_launches, times, ctimes,
                              err, s, piped, built["serve"]["launches"],
-                             tcp_launches, live_launches, load_launches)
+                             tcp_launches, live_launches, load_launches,
+                             launcher_launches,
+                             launcher["bounded"]["b1_kernels"])
     print(json.dumps({"phase": "build", **built, "card": name,
                       "power_limit": limit}), flush=True)
     print(json.dumps({"phase": "stage1_breakdown", **times["stage1"],
@@ -4044,6 +4864,8 @@ def main(argv=None) -> int:
     for line in load:
         print(json.dumps({"phase": "load", **line, "card": name,
                           "power_limit": limit}), flush=True)
+    print(json.dumps({"phase": "launcher", **launcher, "card": name,
+                      "power_limit": limit}), flush=True)
     log(f"chip_smoke wall, build included: "
         f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -552,8 +552,14 @@ class _Handler(socketserver.StreamRequestHandler):
 
 
 class TCPRetrievalServer(socketserver.ThreadingTCPServer):
+    """The newline-JSON front. It listens with a backlog of
+    ``socket.SOMAXCONN`` (the kernel caps it at ``net.core.somaxconn``),
+    not ``socketserver``'s 5: a burst of connections beyond the backlog
+    would have its SYNs dropped and wait a second to connect. The JAX
+    package's front keeps 5; no reply differs."""
     allow_reuse_address = True
     daemon_threads = True
+    request_queue_size = socket.SOMAXCONN
 
     def __init__(self, addr, retrieval_server: RetrievalServer):
         super().__init__(addr, _Handler)

@@ -17,8 +17,16 @@ decompress+MaxSim.
 """
 
 import dataclasses
+import os
+import pathlib
+import re
 import shutil
+import signal
+import socket
+import subprocess
+import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -53,6 +61,7 @@ from repro_torch.kernels.splade_score.ops import (
 from repro_torch.kernels.splade_score.ref import (block_topk_ref,
                                                   splade_block_scores_batch_ref,
                                                   splade_row_scores_batch_ref)
+from repro_torch.launch.serve import build_or_load
 from repro_torch.serving.context import CacheHierarchy
 from repro_torch.serving.engine import Request, ServeEngine
 from repro_torch.serving.pipeline import (DEVICE, HOST, CandidateBatch,
@@ -1069,3 +1078,52 @@ def test_live_trace_on_card(cuda, tmp_path):
             cpu = runs["cpu"][state][m]
             assert_topk_match(cpu[1], cpu[0], got[1], got[0],
                               what=f"{m} state {state}")
+
+
+def test_launcher_on_card(cuda, index_dir):
+    """``python -m repro_torch.launch.serve --index-dir <dir> --port 0``
+    on the card: three replies over TCP equal an in-process twin (the
+    launcher's ``build_or_load`` at its defaults, each request served
+    alone as at ``--max-batch 1``) bit for bit; after SIGTERM the
+    launcher exits 0 and the port refuses connections."""
+    rng = np.random.default_rng(11)
+    msgs = [{"qid": i, "method": m, "k": 10,
+             "q_emb": rng.normal(size=(16, 64)).astype(np.float32).tolist(),
+             "term_ids": rng.integers(0, 500, 8).tolist(),
+             "term_weights": rng.uniform(0.1, 2, 8).astype(np.float32)
+             .tolist()} for i, m in enumerate(("hybrid", "colbert",
+                                               "splade"))]
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out_path, err_path = index_dir / "launcher.out", index_dir / "launcher.err"
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--index-dir",
+             str(index_dir), "--port", "0"], cwd=root, stdout=out,
+            stderr=err, env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    try:
+        for _ in range(int(4 * TIMEOUT / 0.05)):
+            m = re.search(r"^RETRIEVAL_PORT=(\d+)$", out_path.read_text(),
+                          re.M)
+            if m or proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        assert m, err_path.read_text()[-3000:]
+        port = int(m.group(1))
+        replies = [tcp_query("127.0.0.1", port, msg) for msg in msgs]
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0, err_path.read_text()[-3000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=TIMEOUT)
+    with pytest.raises(ConnectionRefusedError):
+        socket.create_connection(("127.0.0.1", port), timeout=TIMEOUT)
+    _, _, retr = build_or_load(str(index_dir), "mmap", device=cuda)
+    engine = ServeEngine(retr)
+    for msg, got in zip(msgs, replies):
+        want = engine.process(wire_request(msg))
+        assert "error" not in got, got
+        assert got["pids"] == want.pids.tolist()
+        np.testing.assert_array_equal(
+            np.asarray(got["scores"], np.float32).view(np.uint32),
+            want.scores.view(np.uint32))
