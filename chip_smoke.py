@@ -259,6 +259,46 @@ Phases, in order; any failure raises and the script exits non-zero:
              128 --tcp``: exit 0, its capacity line, four rate rows, the
              TCP reply and "drained + stopped cleanly." The figures go
              on a ``launcher`` line;
+4i. sharded — frozen in-process shard groups on phase 3's index. (a)
+             ``split_index_tree`` into 2 and 4 shards under a temporary
+             directory of its own, each split timed. (b) 64 mixed
+             SPLADE-method requests (a third each, k ∈ {10, 100}, a
+             quarter with their own α) at 1, 2 and 4 shards (one shard:
+             a ``ShardedRetriever`` over the index itself), with the host
+             and the device stage 1: in batches of 32 through the
+             synchronous engine (tokens read and pages touched, the
+             tokens equal at every shard count), then through
+             ``RetrievalServer`` at max_batch=32, depth 1 and depth 2
+             with kind workers, the shard counts in turns (1, 2, 4, 4,
+             2, 1); every answer equal to the unsharded card engine's
+             bit for bit. Each run's launches against its stage
+             records: one shard launches as unsharded; more launch, per
+             method group, the SPLADE top-k entry once a shard (device
+             stage 1), decompress_maxsim once a shard per rerank or
+             hybrid group, and fused_rerank never. Then the depth-2
+             kind turns of 1 and 4 shards with the device stage 1 again,
+             at the interpreter's switch interval and at a twentieth of
+             it, each with the wall inside the host syncs summed (the
+             stage-1 copy to the host, the tail's event, the copies to
+             the card): a device stage that waits for the stream keeps
+             its wall at the shorter interval, one that waits for the
+             GIL held by the gather threads loses it. (c) colbert, mmap,
+             one batch of 32 at nprobe 4, ndocs 256: at a cap that
+             cannot bind (query tokens × nprobe × the longest IVF list;
+             no query capped), 2 and 4 shards equal 1 (ids up to
+             exact-score ties, which the group breaks by pid); at phase
+             4's cap of 4,096, which binds, each card group is held to
+             the port's CPU group over the same shard directories; the
+             codes gather touches no residual page. (d) The path's two
+             kernels at 4 shards, on one batch's merged stage-1 rows:
+             decompress_maxsim at each shard's candidate width held to
+             its plain version and, scattered back, equal to one launch
+             over the unsharded (32, 200) candidates bit for bit; the
+             SPLADE top-k entry on each shard's postings equal to its
+             plain version; shard 0's launches timed. The shards'
+             SPLADE device caches, the centroid table a shard, and
+             ``torch.cuda.max_memory_allocated`` since the phase began.
+             The figures go on a ``sharded`` line;
 5. time    — time each kernel with CUDA events at the serve shapes, and
              each at B=1, in an eager loop (the rerank tail's two
              kernels, MaxSim, the SPLADE kernel's two entry points and
@@ -288,7 +328,9 @@ and phase 4h's in-process twin of the launcher (``launcher``) and its
 in-process max_batch=1 bounded loads (``launcher_b1`` with the host
 stage 1, ``launcher_b1_device``), whose B=1 kernels are held to their
 plain versions and timed at the built-in corpus's shapes (d=64,
-K=256);
+K=256), and phase 4i's run of 4 shards with the device stage 1 at depth
+1 (``sharded``) with the SPLADE top-k entry and decompress_maxsim, timed
+at shard 0's shapes;
 ``launches`` is that path's own run's count, and the times are at that path's candidate width (``C``).
 
 Arithmetic is IEEE fp32: TF32 is switched off for matmuls and cuDNN.
@@ -872,10 +914,12 @@ def make_requests(rng, s: Shapes, topics: np.ndarray, n: int,
     return reqs
 
 
-def serve_run(engine, warm, reqs, max_batch: int, counted: dict):
+def serve_run(engine, warm, reqs, max_batch: int, counted: dict,
+              on_start=None):
     """Serve ``reqs`` through a ``RetrievalServer`` over ``engine`` after
     a warm-up batch, with every counter of ``counted`` (name → wrapper)
-    set to 0 just before the requests and read just after."""
+    set to 0 just before the requests and read just after;
+    ``on_start()``, if given, is called just before the requests."""
     from repro_torch.serving.server import RetrievalServer
 
     if engine.pipelined:     # the executors start in the warm-up
@@ -889,6 +933,8 @@ def serve_run(engine, warm, reqs, max_batch: int, counted: dict):
         engine.retriever.reset_stage_stats()
         for fn in counted.values():
             fn.launches = 0
+        if on_start is not None:
+            on_start()
         t0 = time.perf_counter()
         futs = [server.submit(r) for r in reqs]
         results = [f.result(timeout=600) for f in futs]
@@ -1658,6 +1704,18 @@ PIPELINED_TURNS = ((1, None), (2, "single"), (2, "kind"), (2, "kind"),
                    (2, "single"), (1, None))
 
 
+def join_pipeline_threads(label: str) -> None:
+    """Join the executor and retry threads a run left; fail if one
+    outlives the join."""
+    left = [t for t in threading.enumerate()
+            if t.name.startswith(("pipe-", "pipeline-retry"))]
+    for t in left:
+        t.join(timeout=30)
+    if any(t.is_alive() for t in left):
+        raise RuntimeError(f"{label}: pipeline threads left running: "
+                           f"{[t.name for t in left]}")
+
+
 def pipelined(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
               device) -> dict:
     """Phase 4d: serve each workload of :func:`pipelined_workloads`
@@ -1693,13 +1751,7 @@ def pipelined(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
                 fresh(reqs), s.B, counted)
             label = f"pipelined {name} depth {depth}" + (
                 f" {workers}" if workers else "")
-            left = [t for t in threading.enumerate()
-                    if t.name.startswith(("pipe-", "pipeline-retry"))]
-            for t in left:
-                t.join(timeout=30)
-            if any(t.is_alive() for t in left):
-                raise RuntimeError(f"{label}: pipeline threads left "
-                                   f"running: {[t.name for t in left]}")
+            join_pipeline_threads(label)
             check_launches(label, line["launches"], kernels)
             pages = line["stage_pages"]
             if not resident and name == "colbert" and (
@@ -3827,6 +3879,475 @@ def launcher_phase(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
+# phase 4i: frozen in-process shards
+# ---------------------------------------------------------------------------
+
+SHARD_COUNTS = (1, 2, 4)
+# the served runs' shard counts, in turns, so that drift on the card and
+# its host favours none of them; each at depth 1, then at depth 2 with
+# kind workers
+SHARD_ORDER = (1, 2, 4, 4, 2, 1)
+SHARD_TURNS = ((1, None), (2, "kind"))
+# the traced depth-2 turns' switch intervals, as fractions of the
+# interpreter's own
+TRACE_INTERVALS = (1.0, 0.05)
+
+
+class SyncClock:
+    """While in use, sums the wall time spent inside the port's host
+    syncs, from whatever thread calls them: ``finalize_topk`` (stage 1's
+    copy to the host, which waits for the stream), ``HostCopy.wait`` (a
+    tail's event) and ``PLAIDSearcher.to_device`` (a copy from pageable
+    host memory, which waits for the stream too). The waits include the
+    time a thread then takes to get the GIL back."""
+
+    def __init__(self):
+        from repro_torch.common import HostCopy
+        from repro_torch.core.plaid import PLAIDSearcher
+        from repro_torch.index.splade_device import SpladeDeviceCache
+        self.targets = ((SpladeDeviceCache, "finalize_topk"),
+                        (HostCopy, "wait"), (PLAIDSearcher, "to_device"))
+        self.lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        with self.lock:
+            self.walls = {n: 0.0 for _, n in self.targets}
+            self.calls = {n: 0 for _, n in self.targets}
+
+    def _timed(self, name: str, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                with self.lock:
+                    self.walls[name] += dt
+                    self.calls[name] += 1
+        return call
+
+    def __enter__(self):
+        self.saved = [(cls, n, cls.__dict__[n]) for cls, n in self.targets]
+        for cls, n, raw in self.saved:
+            if isinstance(raw, staticmethod):
+                setattr(cls, n, staticmethod(self._timed(n, raw.__func__)))
+            else:
+                setattr(cls, n, self._timed(n, raw))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, n, raw in self.saved:
+            setattr(cls, n, raw)
+
+
+def shard_retriever(path: pathlib.Path, groups: dict, n_shards: int, device,
+                    plaid):
+    """The group of ``n_shards`` over phase 3's index with PLAID at
+    ``plaid``: one shard wraps a retriever over the index itself (the
+    one-shard group); more load the group ``split_index_tree`` wrote
+    (``groups``: n_shards → (shard dirs, boundaries))."""
+    from repro_torch.core.multistage import (MultiStageParams,
+                                             MultiStageRetriever)
+    from repro_torch.core.plaid import PLAIDSearcher
+    from repro_torch.core.sharded import (ShardedRetriever,
+                                          build_sharded_retriever)
+    from repro_torch.index.builder import ColBERTIndex
+    from repro_torch.index.splade_index import SpladeIndex
+    ms = MultiStageParams(first_k=FULL.C, k=100)
+    if n_shards == 1:
+        one = MultiStageRetriever(
+            SpladeIndex.load(path / "splade", mmap=True),
+            PLAIDSearcher(ColBERTIndex(path / "colbert", mode="mmap"), plaid,
+                          device=device), ms, device=device)
+        return ShardedRetriever([one], [0, one.splade.n_docs])
+    dirs, bounds = groups[n_shards]
+    return build_sharded_retriever(dirs, bounds, plaid_params=plaid,
+                                   multistage_params=ms, device=device)
+
+
+def group_access(retr):
+    from repro_torch.core.sharded import CombinedAccessStats
+    return CombinedAccessStats([sh.searcher.index.store.stats
+                                for sh in retr.shards])
+
+
+def stage_dispatches(retr) -> dict:
+    return {n: r["dispatches"]
+            for n, r in retr.pipeline_stats.snapshot()["stages"].items()}
+
+
+def check_shard_launches(label: str, n_shards: int, backend: str,
+                         launches: dict, disp: dict) -> None:
+    """A run's launches against its stage records: one shard is the
+    unsharded path (per method group one stage-1 launch with the device
+    stage 1, one tail launch: fused_rerank for rerank, decompress_maxsim
+    for hybrid); more shards launch, per method group, the SPLADE top-k
+    entry once per shard with the device stage 1, decompress_maxsim once
+    per shard per rerank or hybrid group, and fused_rerank never."""
+    s1 = disp.get("splade_stage1", 0) if backend == "device" else 0
+    if n_shards == 1:
+        tail = disp.get("fused_rerank", 0)
+        ok = (launches["splade_topk"] == s1 and launches["fused_rerank"] > 0
+              and launches["decompress_maxsim"] > 0
+              and launches["fused_rerank"] + launches["decompress_maxsim"]
+              == tail)
+    else:
+        ok = (launches["splade_topk"] == n_shards * s1
+              and launches["decompress_maxsim"]
+              == n_shards * disp.get("device_score:maxsim", 0)
+              and launches["fused_rerank"] == 0)
+    ok = ok and launches["splade_score"] == launches["maxsim"] == 0
+    if not ok:
+        raise RuntimeError(f"{label}: launches {launches} against the stage "
+                           f"records {disp}")
+
+
+def sharded_splade(rng, s: Shapes, path: pathlib.Path, groups: dict,
+                   topics: np.ndarray, device, counted: dict) -> dict:
+    """Phase 4i (b): the SPLADE methods at 1, 2 and 4 shards, each stage
+    1, synchronously in fixed batches, then through ``RetrievalServer``
+    at depth 1 and 2 (kind) with the shard counts in the turns of
+    ``SHARD_ORDER``: every answer equal to the unsharded card engine's
+    bit for bit."""
+    from repro_torch.serving.engine import ServeEngine
+    reqs = make_requests(rng, s, topics, s.n_requests)
+    warm = make_requests(rng, s, topics, 6, qid0=60_000)
+    chunks = [reqs[lo:lo + s.B] for lo in range(0, len(reqs), s.B)]
+    plain = make_retriever(path, device)
+    runs, reads, by_path = [], {}, {}
+    for backend in ("host", "device"):
+        ref = ServeEngine(plain, splade_backend=backend)
+        want = [r for c in chunks for r in ref.process_batch(fresh(c))]
+        retrs = {}
+        for n_shards in SHARD_COUNTS:
+            retr = retrs[n_shards] = shard_retriever(
+                path, groups, n_shards, device, plaid_params(s))
+            engine = ServeEngine(retr, splade_backend=backend)
+            access = group_access(retr)
+            access.reset()
+            got = [r for c in chunks for r in engine.process_batch(fresh(c))]
+            snap = access.snapshot()
+            same_bits(want, got, f"sharded S={n_shards} {backend} in "
+                                 "batches of 32")
+            reads[f"{backend}_S{n_shards}"] = {
+                "tokens_read": snap["tokens_read"],
+                "pages_touched": snap["pages_touched"]}
+        for n_shards in SHARD_ORDER:
+            retr = retrs[n_shards]
+            for depth, workers in SHARD_TURNS:
+                label = (f"sharded S={n_shards} {backend} depth {depth}"
+                         + (f" {workers}" if workers else ""))
+                eng = ServeEngine(retr, splade_backend=backend,
+                                  pipeline_depth=depth,
+                                  pipeline_workers=workers or "single")
+                results, line = serve_run(eng, warm, fresh(reqs), s.B,
+                                          counted)
+                disp = stage_dispatches(retr)
+                eng.close()
+                join_pipeline_threads(label)
+                check_shard_launches(label, n_shards, backend,
+                                     line["launches"], disp)
+                same_bits(want, results, label)
+                walls = line["stage_wall_s"]
+                line.update(shards=n_shards, splade_backend=backend,
+                            depth=depth, workers=workers,
+                            stage_dispatches=disp,
+                            residual_gather_s=walls.get(
+                                "host_gather:residuals"))
+                runs.append(line)
+                if depth == 1 and backend == "device":
+                    by_path.setdefault(n_shards, line["launches"])
+                log(f"{label}: {line['qps']:.1f} QPS, p50 "
+                    f"{line['p50_ms']:.1f} ms, p99 {line['p99_ms']:.1f} ms; "
+                    f"stage walls {walls}; launches {line['launches']}; "
+                    "equal to the unsharded engine bit for bit")
+        if backend == "device":
+            trace = sync_trace(retrs, warm, reqs, want, s, counted)
+        del retrs, retr, engine
+    tokens = {v["tokens_read"] for v in reads.values()}
+    if len(tokens) != 1:
+        raise RuntimeError(f"sharded: tokens read differ across shard "
+                           f"counts: {reads}")
+    log(f"sharded: tokens read and pages touched in batches of 32 {reads}")
+    return {"runs": runs, "reads": reads, "launches": by_path,
+            "trace": trace}
+
+
+def sync_trace(retrs: dict, warm, reqs, want, s: Shapes,
+               counted: dict) -> list:
+    """Phase 4i (b), the trace of depth 2: the depth-2 kind turns of 1
+    and 4 shards with the device stage 1, at each switch interval of
+    ``TRACE_INTERVALS``, with the wall inside the host syncs summed
+    (:class:`SyncClock`) over the same requests as the stage walls.
+    Every answer equal to the unsharded engine's bit for bit."""
+    from repro_torch.serving.engine import ServeEngine
+    default = sys.getswitchinterval()
+    lines = []
+    for frac in TRACE_INTERVALS:
+        for n_shards in (1, 4):
+            label = (f"sharded trace S={n_shards} depth 2 kind, switch "
+                     f"interval {default * frac * 1e3:g} ms")
+            clock = SyncClock()
+            sys.setswitchinterval(default * frac)
+            try:
+                with clock:
+                    eng = ServeEngine(retrs[n_shards], splade_backend="device",
+                                      pipeline_depth=2,
+                                      pipeline_workers="kind")
+                    try:
+                        results, line = serve_run(eng, warm, fresh(reqs),
+                                                  s.B, counted,
+                                                  on_start=clock.reset)
+                    finally:
+                        eng.close()
+            finally:
+                sys.setswitchinterval(default)
+            join_pipeline_threads(label)
+            same_bits(want, results, label)
+            line.update(shards=n_shards, switch_interval_s=default * frac,
+                        sync_wall_s=dict(clock.walls),
+                        sync_calls=dict(clock.calls))
+            lines.append(line)
+            log(f"{label}: {line['qps']:.1f} QPS; stage walls "
+                f"{line['stage_wall_s']}; inside the syncs {clock.walls} "
+                f"over {clock.calls} calls")
+    return lines
+
+
+def sharded_colbert(rng, s: Shapes, path: pathlib.Path, groups: dict,
+                    device, counted: dict) -> dict:
+    """Phase 4i (c): colbert, mmap, one batch of 32 at nprobe 4, ndocs
+    256. At a cap that cannot bind (the query tokens × nprobe × the
+    longest IVF list), 2 and 4 shards equal the unsharded engine (ids up
+    to exact-score ties); at phase 4's binding cap each card group is
+    held to the port's CPU group over the same shard directories."""
+    from repro_torch.core.plaid import PlaidParams
+    from repro_torch.index.builder import ColBERTIndex
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.testing import (REF_MARGIN,
+                                     assert_same_up_to_exact_ties,
+                                     assert_topk_match)
+    reqs = colbert_requests(rng, s, s.B)
+    warm = colbert_requests(rng, s, 4, qid0=61_000)
+    longest = ColBERTIndex(path / "colbert").ivf.max_list_len()
+    open_cap = s.Lq * s.nprobe * longest
+    caps = {"open": PlaidParams(nprobe=s.nprobe, candidate_cap=open_cap,
+                                ndocs=s.ndocs, k=100),
+            "binding": plaid_params(s)}
+    out = {"open_cap": open_cap, "binding_cap": s.candidate_cap,
+           "ivf_longest_list": longest, "runs": []}
+    want = None
+    for cap, n_shards in (("open", 1), ("open", 2), ("open", 4),
+                          ("binding", 2), ("binding", 4)):
+        label = f"sharded colbert S={n_shards} cap {cap}"
+        retr = shard_retriever(path, groups, n_shards, device, caps[cap])
+        access = group_access(retr)
+        access.reset()
+        results, line = serve_run(ServeEngine(retr), warm, fresh(reqs), s.B,
+                                  counted)
+        disp = stage_dispatches(retr)
+        launches = line["launches"]
+        tail = ({"fused_rerank": disp["fused_rerank"]} if n_shards == 1 else
+                {"decompress_maxsim": n_shards
+                 * disp["device_score:exact"]})
+        expect_launches(label, launches, tail)
+        snap = access.snapshot()
+        pages = line["stage_pages"]
+        if pages["host_gather:codes"] != 0 \
+                or pages["host_gather:residuals"] == 0:
+            raise RuntimeError(f"{label}: residual pages touched by the "
+                               f"codes / residual gathers: {pages}")
+        line.update(shards=n_shards, cap=caps[cap].candidate_cap,
+                    stage_dispatches=disp,
+                    tokens_read=snap["tokens_read"],
+                    pages_touched=snap["pages_touched"])
+        if cap == "open" and n_shards == 1:
+            counts = candidate_counts(retr.shards[0].searcher,
+                                      [r.q_emb for r in reqs], s.B)
+            if counts["queries_capped"]:
+                raise RuntimeError(f"{label}: the cap binds: {counts}")
+            out["open_candidates"] = counts
+            want = results
+        elif cap == "open":
+            for a, b in zip(want, results, strict=True):
+                assert_same_up_to_exact_ties(
+                    (a.pids, a.scores), (b.pids, b.scores),
+                    what=f"{label} qid {b.qid}")
+        else:
+            cpu = ServeEngine(shard_retriever(path, groups, n_shards, "cpu",
+                                              caps[cap]))
+            ref = cpu.process_batch([dataclasses.replace(
+                r, ctx=None, k=r.k + REF_MARGIN) for r in reqs])
+            for req, a, b in zip(reqs, ref, results, strict=True):
+                assert_topk_match(a.scores, a.pids, b.scores, b.pids,
+                                  what=f"{label} qid {b.qid} k={req.k}")
+            del cpu
+        out["runs"].append(line)
+        log(f"{label}: {line['qps']:.1f} QPS, p50 {line['p50_ms']:.1f} ms; "
+            f"stage walls {line['stage_wall_s']}; tokens read "
+            f"{snap['tokens_read']}, pages {snap['pages_touched']}; "
+            f"launches {launches}; "
+            + ("the reference" if want is results else
+               "equal to unsharded bit for bit, ids up to exact-score ties"
+               if cap == "open" else "held to the port's CPU group"))
+        del retr
+    return out
+
+
+def sharded_kernels(rng, s: Shapes, path: pathlib.Path, groups: dict,
+                    topics: np.ndarray, device, peaks) -> dict:
+    """The sharded path's two kernels at the shapes it launches them, on
+    one batch of 32 queries and 4 shards: decompress_maxsim on each
+    shard's own candidates of the merged stage-1 rows (C = the shard's
+    width), held to its plain version, and every candidate's score
+    equal bit for bit to a launch over the unsharded (B, first_k)
+    candidates; the SPLADE top-k entry on each shard's postings, equal
+    to its plain version bit for bit. Shard 0's launches are timed as
+    phase 5 times them, against their bounds."""
+    import torch
+    from repro_torch.core.plaid import pad_query_batch_host
+    from repro_torch.core.sharded import compact_owned, scatter_scores
+    from repro_torch.kernels.decompress_maxsim.ops import (
+        decompress_maxsim_scores_batch as dms)
+    from repro_torch.kernels.decompress_maxsim.ref import (
+        decompress_maxsim_ref)
+    from repro_torch.kernels.fused_rerank.ref import stable_topk
+    from repro_torch.kernels.splade_score.ops import splade_row_topk_batch
+    from repro_torch.kernels.splade_score.ref import (
+        splade_row_scores_batch_ref)
+    from repro_torch.testing import ATOL, RTOL
+
+    retr = shard_retriever(path, groups, 4, device, plaid_params(s))
+    tids, tw = topic_terms(rng, topics, s.B, s.query_terms)
+    tids, tw = list(tids), list(tw)
+    pids_b, _ = retr.run_splade_batch(tids, tw)
+    q_host = pad_query_batch_host([unit(rng.normal(size=(s.Lq, s.d)))
+                                   for _ in range(s.B)])
+
+    def tile_inputs(searcher, pids):
+        q, q_valid, codes, packed, valid, cmask = searcher.to_device(
+            *q_host, *searcher.gather_tokens_batch(pids), pids >= 0)
+        return dict(q=q, packed=packed, cids=codes, valid=valid,
+                    cmask=cmask, q_valid=q_valid,
+                    centroids=searcher.centroids,
+                    bw=searcher.bucket_weights)
+
+    def launch(x):
+        return dms(x["q"], x["packed"], x["cids"], x["valid"],
+                   x["centroids"], x["bw"], nbits=4, q_valid=x["q_valid"])
+
+    full = launch(tile_inputs(make_searcher(path, device), pids_b))
+    full = full.cpu().numpy()
+    scattered = np.full(pids_b.shape, np.nan, np.float32)
+    out = {"C": [], "n_docs": [], "max_abs_err": 0.0}
+    for i, sh in enumerate(retr.shards):
+        cols, sel = compact_owned(pids_b, retr.offsets[i],
+                                  retr.offsets[i + 1])
+        x = tile_inputs(sh.searcher, sel)
+        got = launch(x)
+        want = decompress_maxsim_ref(x["q"], x["packed"], x["cids"],
+                                     x["valid"], x["centroids"], x["bw"], 4,
+                                     x["q_valid"])
+        got_np, want_np = got.cpu().numpy(), want.cpu().numpy()
+        np.testing.assert_allclose(got_np, want_np, rtol=RTOL, atol=ATOL,
+                                   err_msg=f"shard {i} decompress_maxsim")
+        real = sel >= 0
+        out["max_abs_err"] = max(out["max_abs_err"], float(
+            np.abs(got_np[real] - want_np[real]).max()))
+        scatter_scores(scattered, cols, got_np)
+        out["C"].append(int(sel.shape[1]))
+        if i == 0:
+            shape = dataclasses.replace(s, C=int(sel.shape[1]))
+            out["decompress_maxsim"] = dict(measure(
+                tile_fns(x, False), lambda: bound(x, shape, peaks, False),
+                graph=True), C=int(sel.shape[1]))
+        cache = sh.splade_device_cache()
+        rows, w = kernel_rows(cache, tids, tw)
+        args = (cache.row_pids, cache.row_imps, rows, w)
+        tp, ts = splade_row_topk_batch(*args, n_docs=cache.n_docs, k=s.C)
+        hp, hs = splade_row_topk_batch(*(a.cpu() for a in args),
+                                       n_docs=cache.n_docs, k=s.C)
+        if not (torch.equal(tp.cpu(), hp) and torch.equal(
+                ts.cpu().view(torch.int32), hs.view(torch.int32))):
+            raise AssertionError(f"shard {i}: splade top-k != plain")
+        out["n_docs"].append(int(cache.n_docs))
+        if i == 0:
+            out["splade_topk"] = dict(measure(
+                {"ms": lambda: splade_row_topk_batch(
+                    *args, n_docs=cache.n_docs, k=s.C),
+                 "plain": lambda: stable_topk(splade_row_scores_batch_ref(
+                    *args, cache.n_docs), s.C)},
+                lambda: splade_bound(cache, rows, w, peaks, s.C),
+                graph=True), n_docs=int(cache.n_docs), max_abs_err=0.0)
+    real = pids_b >= 0
+    if not np.array_equal(scattered[real].view(np.uint32),
+                          full[real].view(np.uint32)):
+        raise AssertionError("a shard's decompress_maxsim scores differ "
+                             "from the unsharded launch's")
+    out["decompress_maxsim"]["max_abs_err"] = out["max_abs_err"]
+    log(f"sharded kernels at the shards' widths {out['C']}: "
+        f"decompress_maxsim held to plain (max |err| "
+        f"{out['max_abs_err']:.3g}) and equal to the unsharded width-"
+        f"{s.C} launch bit for bit; splade top-k on {out['n_docs']} docs "
+        f"equal to plain; shard 0 timed: {out}")
+    return out
+
+
+def sharded_phase(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
+                  device, peaks) -> tuple:
+    """Phase 4i (see the module docstring). → (the ``sharded`` line's
+    figures, {n_shards: the device-stage-1 depth-1 run's launches}, the
+    kernels at the shards' shapes)."""
+    import torch
+    from repro_torch.index.sharding import load_group, split_index_tree
+    torch.cuda.reset_peak_memory_stats(device)
+    counted = counted_kernels()
+    out = {"split": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shards_") as tmp:
+        groups = {}
+        for n_shards in SHARD_COUNTS[1:]:
+            t0 = time.perf_counter()
+            group = split_index_tree(path, n_shards,
+                                     group_dir=pathlib.Path(tmp)
+                                     / f"S{n_shards}")
+            seconds = time.perf_counter() - t0
+            groups[n_shards] = load_group(group)
+            written = sum(f.stat().st_size for f in group.rglob("*")
+                          if f.is_file())
+            out["split"][n_shards] = {
+                "seconds": seconds, "bytes_written": written,
+                "boundaries": groups[n_shards][1].tolist()}
+            log(f"sharded (a): split into {n_shards} shards in "
+                f"{seconds:.2f} s, {written} bytes written")
+        t0 = time.perf_counter()
+        splade = sharded_splade(rng, s, path, groups, topics, device,
+                                counted)
+        out["splade_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["colbert"] = sharded_colbert(rng, s, path, groups, device,
+                                         counted)
+        out["colbert_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        kernels = sharded_kernels(rng, s, path, groups, topics, device,
+                                  peaks)
+        out["kernels_s"] = time.perf_counter() - t0
+        retr = shard_retriever(path, groups, 4, device, plaid_params(s))
+        out["memory"] = {
+            "splade_device_cache_bytes": [
+                c.nbytes() for c in retr.splade_device_cache()],
+            "centroid_bytes_per_shard": [
+                sh.searcher.centroids.numel() * 4 for sh in retr.shards],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(device)}
+        del retr
+    out["runs"], out["reads"] = splade["runs"], splade["reads"]
+    out["trace"] = splade["trace"]
+    out["kernels"] = kernels
+    log(f"sharded: memory {out['memory']}")
+    return out, splade["launches"], kernels
+
+
+# ---------------------------------------------------------------------------
 # phase 3b: the index build on the card
 # ---------------------------------------------------------------------------
 
@@ -4640,7 +5161,8 @@ SOURCES = {
 def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
                    ctimes: dict, err: dict, s: Shapes, piped: dict,
                    built: dict, tcp: dict, live: dict, load: dict,
-                   launcher: dict, builtin: dict) -> list:
+                   launcher: dict, builtin: dict, sharded: dict,
+                   shard_kernels: dict) -> list:
     """The ``{"kernels": [...]}`` line's entries: one per main path and
     kernel, with that path's launches from its own run (counts set to 0
     just before it, read just after) and the kernel timed at that path's
@@ -4664,7 +5186,11 @@ def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
     load with the host and the device stage 1 (``launcher_b1``,
     ``launcher_b1_device``) with their B=1 kernels, held to their plain
     versions and timed at the built-in corpus's own shapes (``builtin``:
-    kernel → its timing dict, C = first_k)."""
+    kernel → its timing dict, C = first_k); phase 4i's run of 4 shards
+    with the device stage 1 at depth 1 (``sharded``: its launches) with
+    the two kernels of its path, held to their plain versions and timed
+    at a shard's shapes (``shard_kernels``: decompress_maxsim at shard
+    0's candidate width, the SPLADE top-k entry on its postings)."""
     paths = [("serve_device", served["device"][0]["launches"], kname,
               times[kname]["batch"], err[kname], s.C) for kname in SOURCES]
     paths += [("front_door", door, kname, times[kname]["batch"], err[kname],
@@ -4708,6 +5234,10 @@ def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
                   ("launcher_b1_device", ("splade_topk",
                                           "decompress_maxsim")))
               for kname in knames]
+    paths += [("sharded", sharded, kname, shard_kernels[kname],
+               shard_kernels[kname]["max_abs_err"],
+               shard_kernels[kname].get("C", s.C))
+              for kname in ("splade_topk", "decompress_maxsim")]
     out = []
     for path_name, launches, kname, t, max_err, C in paths:
         src, replaces = SOURCES[kname]
@@ -4808,6 +5338,10 @@ def main(argv=None) -> int:
             load[0]["mu_s"], peaks)
         log(f"phase 4h launcher: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+        sharded, sharded_launches, shard_times = sharded_phase(
+            sub_rng(args.seed, "sharded"), s, path, topics, device, peaks)
+        log(f"phase 4i sharded: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         times = time_kernels(rng, s, device, peaks, path, topics, args.seed)
         ctimes = time_colbert(sub_rng(args.seed, "colbert timing"), s,
                               device, peaks, path)
@@ -4838,7 +5372,8 @@ def main(argv=None) -> int:
                              err, s, piped, built["serve"]["launches"],
                              tcp_launches, live_launches, load_launches,
                              launcher_launches,
-                             launcher["bounded"]["b1_kernels"])
+                             launcher["bounded"]["b1_kernels"],
+                             sharded_launches[4], shard_times)
     print(json.dumps({"phase": "build", **built, "card": name,
                       "power_limit": limit}), flush=True)
     print(json.dumps({"phase": "stage1_breakdown", **times["stage1"],
@@ -4865,6 +5400,8 @@ def main(argv=None) -> int:
         print(json.dumps({"phase": "load", **line, "card": name,
                           "power_limit": limit}), flush=True)
     print(json.dumps({"phase": "launcher", **launcher, "card": name,
+                      "power_limit": limit}), flush=True)
+    print(json.dumps({"phase": "sharded", **sharded, "card": name,
                       "power_limit": limit}), flush=True)
     log(f"chip_smoke wall, build included: "
         f"{time.perf_counter() - t_all:.1f} s")

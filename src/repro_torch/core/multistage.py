@@ -44,7 +44,6 @@ from repro_torch.core import hybrid as hybrid_mod
 from repro_torch.core.plaid import (PLAIDSearcher, pad_query_batch_host,
                                     pad_topk_host, stage3_approx_score_batch,
                                     topk_host)
-from repro_torch.core.sharded import merge_topk
 from repro_torch.index import live as live_mod
 from repro_torch.index.builder import ColBERTIndex
 from repro_torch.index.splade_device import SpladeDeviceCache
@@ -342,6 +341,8 @@ class MultiStageRetriever:
         disjoint partitions under (score desc, pid asc) is the top-k of
         their union, so the result is what one index over base ∪ delta
         minus the tombstones scores."""
+        # imported here: core.sharded subclasses this module's retriever
+        from repro_torch.core.sharded import merge_topk
         base = self.splade.score_batch_host(term_ids, term_weights, k,
                                             exclude=live.base_exclude)
         d_pids, d_scores = live.splade_delta_topk(term_ids, term_weights, k)
@@ -523,6 +524,7 @@ class MultiStageRetriever:
             return cb.with_state(c_codes=codes, c_valid=valid, d_cand=d_cand)
 
         def live_survivors(s, codes, valid):
+            from repro_torch.core.sharded import merge_topk
             # base candidates' approximate scores with the tombstoned ones
             # dropped (pid -1, -inf: what a padded slot is), merged with
             # the delta's by (score desc, pid asc) — approx_select_batch's

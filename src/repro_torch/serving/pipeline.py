@@ -63,6 +63,11 @@ class CandidateBatch:
     intermediate products (candidate sets, gathered codes/residuals,
     device scores); ``pids``/``scores`` are the final per-query results
     filled in by the terminal stage.
+
+    ``shard_states`` is the batch's *shard axis*: under a sharded index
+    each fanout stage writes one state mapping per shard, read back by
+    the next fanout stage (same shard slot) or by a ``merge_topk`` stage
+    that combines the shards' candidates into global results.
     """
 
     method: str
@@ -73,6 +78,7 @@ class CandidateBatch:
     alphas: Optional[np.ndarray] = None     # (B,) hybrid interpolation
     ctxs: Optional[tuple] = None            # per-query RequestContext
     state: Mapping[str, Any] = _EMPTY_STATE
+    shard_states: Optional[tuple] = None    # per-shard state mappings
     pids: Optional[np.ndarray] = None       # (B, k) final, -1 padded
     scores: Optional[np.ndarray] = None     # (B, k) final, desc
 
@@ -111,13 +117,24 @@ class Stage:
     host touch waits for that event (the window closes when it starts).
     The executor's single worker parks a batch at its ``closes_async``
     stage while younger batches still have stages to run before theirs,
-    so the device works on batch N while the host works on batch N+1."""
+    so the device works on batch N while the host works on batch N+1.
+
+    ``fanout > 0`` declares a *sharded* stage: ``fn(cb, shard)`` runs
+    once per shard and returns that shard's new state mapping, and the
+    plan assembles the results into ``cb.shard_states``. With ``pooled``
+    (and a plan ``pool``) the per-shard calls run concurrently on the
+    pool's threads: only host stages are pooled (the mmap gathers, whose
+    copies and page faults release the GIL), since a pool thread's
+    current CUDA stream is not the executor's. Device fanout stages run
+    the shards in order on the calling thread."""
 
     name: str                                  # unique within the plan
     kind: str                                  # HOST | DEVICE
     fn: Callable[..., Any]
     opens_async: bool = False
     closes_async: bool = False
+    fanout: int = 0                            # >0: per-shard execution
+    pooled: bool = False                       # fanout on the plan's pool
     device_dispatches: Optional[int] = None    # declared launches/run
 
     def __post_init__(self):
@@ -142,11 +159,19 @@ class StagePlan:
     ``access_stats``, when set (the mmap store's ``AccessStats``), is
     snapshotted around host-kind stages so pages/tokens touched are
     attributed per stage.
+
+    ``pool`` (duck-typed: needs ``.map``) runs the per-shard calls of
+    ``pooled`` fanout stages concurrently; without one they run in shard
+    order.
     """
 
     method: str
     stages: tuple
     access_stats: Any = None   # duck-typed: needs .snapshot() -> dict
+    pool: Any = None           # duck-typed: needs .map (fanout stages)
+
+    def stage_names(self) -> tuple:
+        return tuple(s.name for s in self.stages)
 
     def run_stage(self, stage: Stage, cb: CandidateBatch,
                   stats: Optional["PipelineStats"] = None,
@@ -159,7 +184,7 @@ class StagePlan:
             stats.stage_begin()
         t0 = time.perf_counter()
         try:
-            out = stage.fn(cb)
+            out = self._call_stage(stage, cb)
         finally:
             wall = time.perf_counter() - t0
             if stats is not None:
@@ -175,8 +200,24 @@ class StagePlan:
             stats.record(stage.name, stage.kind, wall,
                          queries=cb.n_queries, pages_touched=pages,
                          tokens_read=tokens, queue_wait_s=queue_wait_s,
-                         device_dispatches=stage.device_dispatch_count)
+                         device_dispatches=stage.device_dispatch_count
+                         * max(1, stage.fanout))
         return out
+
+    def _call_stage(self, stage: Stage, cb: CandidateBatch):
+        """Plain stages run ``fn(cb)``; fanout stages run ``fn(cb, shard)``
+        once per shard (on the pool when the stage is ``pooled`` and the
+        plan has one) and put the returned mappings on the batch's shard
+        axis. A shard that raises fails this batch only: the executor
+        fails its future and the other batches in flight go on."""
+        if not stage.fanout:
+            return stage.fn(cb)
+        shards = range(stage.fanout)
+        if stage.pooled and self.pool is not None:
+            outs = list(self.pool.map(lambda i: stage.fn(cb, i), shards))
+        else:
+            outs = [stage.fn(cb, i) for i in shards]
+        return cb.evolve(shard_states=tuple(outs))
 
     def run(self, cb: CandidateBatch,
             stats: Optional["PipelineStats"] = None) -> CandidateBatch:

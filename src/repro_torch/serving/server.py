@@ -420,7 +420,8 @@ class RetrievalServer:
 
     def health(self) -> dict:
         """Server vitals (queue depth, served/failed/shed counts, the
-        adaptive batch cap and its latency EWMA) and, where the engine
+        adaptive batch cap and its latency EWMA, the retriever's shard
+        count: 1 for a single index) and, where the engine
         has a retriever, its per-stage instrumentation and counters
         (and, on a live index, its live statistics and generation); the
         admission controller's and the caches' statistics where
@@ -429,6 +430,7 @@ class RetrievalServer:
         with self._lock:
             failed, batches, sheds = self.failed, self.batches, self.sheds
             cap, ewma = self.batch_cap, self.ewma_latency_ms
+        retr = getattr(self.engine, "retriever", None)
         h = {"queue_depth": self.queue.qsize(),
              "served": self.engine.served,
              "failed": failed,
@@ -439,8 +441,7 @@ class RetrievalServer:
              "batch_cap": cap,
              "ewma_latency_ms": ewma,
              "port": self.tcp_port,
-             "n_shards": 1}           # one index until sharding is ported
-        retr = getattr(self.engine, "retriever", None)
+             "n_shards": getattr(retr, "n_shards", 1)}
         if retr is not None:
             snap = retr.pipeline_stats.snapshot()
             h["stages"] = {

@@ -17,6 +17,10 @@ A ``colbert`` answer may differ by more than a swap inside a tie group:
 a tie at the centroid probe's or the approximate stage's boundary
 changes the candidates themselves. ``colbert_tie_reference`` shows such
 a tie and recomputes the reference past it.
+
+Inside the port a shard group's answer equals the single index's bit
+for bit; for ``colbert`` the ids only up to exact-score ties
+(``assert_same_up_to_exact_ties``).
 """
 
 from __future__ import annotations
@@ -155,6 +159,31 @@ def colbert_tie_reference(ref, dev, q_emb, k: int):
     order = np.argsort(-scores, kind="stable")[:k + REF_MARGIN]
     pids = np.where(scores[order] > -np.inf, final[0].numpy()[order], -1)
     return pids, scores[order], "+".join(routes)
+
+
+def assert_same_up_to_exact_ties(want, got, *, what: str = "") -> None:
+    """Hold (pids, scores) ``got`` to ``want``, both (k,) or (B, k):
+    scores equal bit for bit; ids equal place by place, except inside a
+    run of bitwise-equal scores, where they are equal as a set. This is
+    the bar between a colbert shard group and the single index: the
+    group's final merge breaks an exact-score tie by pid, the single
+    index's by approximate rank."""
+    wp, gp = np.atleast_2d(want[0]), np.atleast_2d(got[0])
+    ws = np.atleast_2d(np.asarray(want[1], np.float32)).view(np.uint32)
+    gs = np.atleast_2d(np.asarray(got[1], np.float32)).view(np.uint32)
+    np.testing.assert_array_equal(gs, ws, err_msg=f"{what}: score bits")
+    np.testing.assert_array_equal(gp.shape, wp.shape, err_msg=what)
+    for b in range(ws.shape[0]):
+        lo = 0
+        while lo < ws.shape[1]:
+            hi = lo + 1
+            while hi < ws.shape[1] and ws[b, hi] == ws[b, lo]:
+                hi += 1
+            if sorted(gp[b, lo:hi].tolist()) != sorted(wp[b, lo:hi].tolist()):
+                raise AssertionError(
+                    f"{what} row {b}: ids {gp[b, lo:hi].tolist()} at "
+                    f"[{lo}:{hi}] are not {wp[b, lo:hi].tolist()}")
+            lo = hi
 
 
 def assert_colbert_match(ref, dev, q_emb, want, got, *, what: str = ""

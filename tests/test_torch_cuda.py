@@ -69,6 +69,7 @@ from repro_torch.serving.pipeline import (DEVICE, HOST, CandidateBatch,
 from repro_torch.serving.server import (RetrievalServer, tcp_query,
                                         wire_request)
 from repro_torch.testing import (REF_MARGIN, assert_colbert_match,
+                                 assert_same_up_to_exact_ties,
                                  assert_topk_match, assign_placements,
                                  near_tie_rows)
 
@@ -1127,3 +1128,96 @@ def test_launcher_on_card(cuda, index_dir):
         np.testing.assert_array_equal(
             np.asarray(got["scores"], np.float32).view(np.uint32),
             want.scores.view(np.uint32))
+
+
+def test_shard_groups_equal_one_shard_on_card(cuda, index_dir):
+    """Groups of 2 and 4 shards on the card equal the one-shard group
+    (the unsharded path) bit for bit: splade, rerank and hybrid with the
+    host and the device stage 1, against both tails of the one shard;
+    colbert at a candidate cap that cannot bind (4,096 over 300 docs).
+    Per rerank or hybrid batch each shard launches decompress_maxsim once
+    and fused_rerank never, and with the device stage 1 each shard
+    launches the SPLADE top-k entry once."""
+    from repro_torch.core.sharded import (ShardedRetriever,
+                                          build_sharded_retriever)
+    from repro_torch.index.sharding import load_group, split_index_tree
+    rng = np.random.default_rng(21)
+    B, d = 12, 64
+    q = dict(q_embs=[rng.normal(size=(int(n), d)).astype(np.float32)
+                     for n in rng.integers(3, 17, B)],
+             term_ids=[rng.integers(0, 500, 8) for _ in range(B)],
+             term_weights=[rng.uniform(0.1, 2, 8).astype(np.float32)
+                           for _ in range(B)])
+    plaid = PlaidParams(nprobe=8, candidate_cap=4096, ndocs=64, k=30)
+
+    def group(n_shards, backend):
+        dirs, bounds = load_group(split_index_tree(
+            index_dir, n_shards, group_dir=index_dir / f"shards{n_shards}"))
+        return build_sharded_retriever(
+            dirs, bounds, plaid_params=plaid, device=cuda,
+            multistage_params=MultiStageParams(first_k=60, k=30,
+                                               splade_backend=backend))
+
+    for backend in ("host", "device"):
+        one = group(1, backend)
+        assert isinstance(one, ShardedRetriever) and one.n_shards == 1
+        want = {}
+        for tail in ("fused", "split"):
+            one.set_rerank_backend(tail)
+            want[tail] = {m: one.search_batch(m, **q, k=30) for m in METHODS}
+        for n_shards in (2, 4):
+            retr = group(n_shards, backend)
+            for m in METHODS:
+                before = _launch_counts()
+                got = retr.search_batch(m, **q, k=30)
+                after = _launch_counts()
+                for tail in ("fused", "split"):
+                    if m == "colbert":
+                        assert_same_up_to_exact_ties(want[tail][m], got,
+                                                     what=m)
+                        continue
+                    np.testing.assert_array_equal(got[0], want[tail][m][0])
+                    np.testing.assert_array_equal(
+                        got[1].view(np.uint32),
+                        want[tail][m][1].view(np.uint32))
+                assert after[0] == before[0]              # no fused_rerank
+                dms = {"splade": 0, "colbert": n_shards}.get(m, n_shards)
+                assert after[1] - before[1] == dms
+                stage1 = n_shards if backend == "device" and m != "colbert" \
+                    else 0
+                assert after[2] - before[2] == stage1
+
+
+def test_shard_group_pipelined_on_card(cuda, index_dir):
+    """A group of 2 shards behind the engine at depth 2 with single and
+    kind workers (the executor's stream; pooled host gathers) gives the
+    synchronous engine's answers bit for bit, mixed batches included."""
+    from repro_torch.core.sharded import build_sharded_retriever
+    from repro_torch.index.sharding import load_group, split_index_tree
+    rng = np.random.default_rng(22)
+    dirs, bounds = load_group(split_index_tree(index_dir, 2))
+    retr = build_sharded_retriever(
+        dirs, bounds, device=cuda,
+        plaid_params=PlaidParams(nprobe=8, candidate_cap=4096, ndocs=64,
+                                 k=30),
+        multistage_params=MultiStageParams(first_k=60, k=30,
+                                           splade_backend="device"))
+    reqs = [Request(qid=i, method=METHODS[i % 4],
+                    q_emb=rng.normal(size=(12, 64)).astype(np.float32),
+                    term_ids=rng.integers(0, 500, 8),
+                    term_weights=rng.uniform(0.1, 2, 8).astype(np.float32),
+                    k=(5, 30)[i % 2], alpha=None if i % 3 else 0.7)
+            for i in range(24)]
+    chunks = [reqs[i:i + 8] for i in range(0, 24, 8)]
+    want = [r for c in chunks for r in ServeEngine(retr).process_batch(c)]
+    for workers in ("single", "kind"):
+        eng = ServeEngine(retr, pipeline_depth=2, pipeline_workers=workers)
+        try:
+            futs = [eng.process_batch_async(c) for c in chunks]
+            got = [r for f in futs for r in f.result(timeout=TIMEOUT)]
+        finally:
+            eng.close()
+        for a, b in zip(want, got):
+            np.testing.assert_array_equal(a.pids, b.pids)
+            np.testing.assert_array_equal(a.scores.view(np.uint32),
+                                          b.scores.view(np.uint32))
