@@ -299,6 +299,42 @@ Phases, in order; any failure raises and the script exits non-zero:
              SPLADE device caches, the centroid table a shard, and
              ``torch.cuda.max_memory_allocated`` since the phase began.
              The figures go on a ``sharded`` line;
+4j. sharded live — the live index of in-process shard groups. (a)
+             Phase 4f (a)'s base (the serve widths, K=16,384) split into
+             2 and 4 shards under a temporary directory of its own; each
+             group fed 4f (a)'s two rounds of mutations, each round
+             ending in ``compact_live()``; the first 64 of its queries,
+             the four methods at k 10 and 100, dirty and compacted:
+             equal to 4f (a)'s pinned card rebuild of the survivors and
+             to the unsharded live retriever's answers bit for bit, each
+             dirty batch launching decompress_maxsim alone (the splade
+             method nothing). (b) Phase 3's index split into 2 and 4
+             shards and served live at 1, 2 and 4 shards (one shard: a
+             group over the index itself): 64 mixed SPLADE-method
+             requests through ``RetrievalServer`` at max_batch=32 with
+             the device stage 1, the shard counts in turns (1, 2, 4, 4,
+             2, 1), clean and then after 256 upserts and 64 deletes (15
+             in each shard of the 4-shard group, 4 of the delta), every
+             answer equal to the unsharded card live engine fed the same
+             trace bit for bit. A clean run's launches as phase 4i's; a
+             dirty run's, per rerank or hybrid group, decompress_maxsim
+             once a shard and once for the delta where the group has
+             delta candidates (``LiveIndexState.exact_scores`` counted),
+             and no other kernel; the first dirty 4-shard run's widest
+             delta launch replayed, held to its plain version and timed
+             at its own (B, C). Then colbert: a 4-shard group and the
+             unsharded retriever at phase 4i (c)'s open cap, fed the
+             same trace, 32 requests (every other one made from an
+             upserted doc) through ``RetrievalServer``, every answer
+             equal to the unsharded live engine's, ids up to exact-score
+             ties; decompress_maxsim 4 × ``device_score:exact`` plus the
+             delta's launches, no other kernel. (c) The 4-shard group
+             compacts under 3 reader threads (every answer unchanged,
+             every thread joined), takes 64 more upserts and compacts
+             alone, the device memory after each equal (no collection
+             forced before the read); the one-shard group then compacts
+             under the readers; each compaction's steps. The figures go
+             on a ``sharded_live`` line;
 5. time    — time each kernel with CUDA events at the serve shapes, and
              each at B=1, in an eager loop (the rerank tail's two
              kernels, MaxSim, the SPLADE kernel's two entry points and
@@ -330,7 +366,9 @@ stage 1, ``launcher_b1_device``), whose B=1 kernels are held to their
 plain versions and timed at the built-in corpus's shapes (d=64,
 K=256), and phase 4i's run of 4 shards with the device stage 1 at depth
 1 (``sharded``) with the SPLADE top-k entry and decompress_maxsim, timed
-at shard 0's shapes;
+at shard 0's shapes, and phase 4j (b)'s first dirty run of 4 shards
+(``sharded_live``) with decompress_maxsim, timed at shard 0's width,
+its ``delta`` the coordinator's delta launch timed at its own width;
 ``launches`` is that path's own run's count, and the times are at that path's candidate width (``C``).
 
 Arithmetic is IEEE fp32: TF32 is switched off for matmuls and cuDNN.
@@ -2156,34 +2194,43 @@ LIVE_UPSERTS, LIVE_DELETES, LIVE_MORE = 256, 64, 64
 LIVE_READERS = 3
 
 
+def live_parity_params(cap: int) -> tuple:
+    """(PLAID, multi-stage) parameters at the serve widths: first_k=200,
+    the device stage 1, the fused tail, PLAID at serve_plaid's nprobe and
+    ndocs with the candidate cap ``cap``."""
+    from repro_torch.core.multistage import MultiStageParams
+    from repro_torch.core.plaid import PlaidParams
+    return (PlaidParams(nprobe=FULL.nprobe, candidate_cap=cap,
+                        ndocs=FULL.ndocs, k=100),
+            MultiStageParams(first_k=FULL.C, k=100, splade_backend="device",
+                             rerank_backend="fused"))
+
+
 def live_parity_retriever(path: pathlib.Path, device, cap: int):
-    """A retriever at the serve widths over ``path``'s ``colbert`` and
-    ``splade``: first_k=200, the device stage 1, the fused tail, PLAID at
-    serve_plaid's nprobe and ndocs with the candidate cap ``cap`` (at or
-    above every corpus size here, so that it never binds)."""
-    from repro_torch.core.multistage import (MultiStageParams,
-                                             MultiStageRetriever)
-    from repro_torch.core.plaid import PLAIDSearcher, PlaidParams
+    """A retriever over ``path``'s ``colbert`` and ``splade`` with
+    :func:`live_parity_params` (``cap`` at or above every corpus size
+    here, so that it never binds)."""
+    from repro_torch.core.multistage import MultiStageRetriever
+    from repro_torch.core.plaid import PLAIDSearcher
     from repro_torch.index.builder import ColBERTIndex
     from repro_torch.index.splade_index import SpladeIndex
-    searcher = PLAIDSearcher(
-        ColBERTIndex(path / "colbert"),
-        PlaidParams(nprobe=FULL.nprobe, candidate_cap=cap, ndocs=FULL.ndocs,
-                    k=100), device=device)
+    plaid, ms = live_parity_params(cap)
+    searcher = PLAIDSearcher(ColBERTIndex(path / "colbert"), plaid,
+                             device=device)
     if searcher.index.n_docs >= cap:
         raise AssertionError(f"the candidate cap {cap} could bind on "
                              f"{searcher.index.n_docs} docs")
     return MultiStageRetriever(
-        SpladeIndex.load(path / "splade", mmap=True), searcher,
-        MultiStageParams(first_k=FULL.C, k=100, splade_backend="device",
-                         rerank_backend="fused"), device=device)
+        SpladeIndex.load(path / "splade", mmap=True), searcher, ms,
+        device=device)
 
 
 def live_answers(retr, corpus, counted: dict, dirty: bool) -> tuple:
     """The corpus's queries in batches of ``FULL.B`` with each method at
     each k of ``LIVE_KS`` → ({(method, k): (pids, scores)}, launches).
     A dirty live index's batches launch decompress_maxsim (the SPLADE
-    method none) and no other kernel."""
+    method none) and no other kernel; a group's a launch a shard and
+    the delta's at the coordinator."""
     out, total = {}, dict.fromkeys(counted, 0)
     n = len(corpus["q_embs"])
     for method in DOOR_METHODS:
@@ -2289,9 +2336,12 @@ def near_tie_counts(centroids: np.ndarray, device) -> dict:
 
 
 def live_parity(rng, corpus, root: pathlib.Path, geometry: pathlib.Path,
-                device, counted: dict) -> dict:
+                device, counted: dict) -> tuple:
     """(a): live == a pinned card rebuild of the survivors, bit for bit,
-    dirty and after each of two compactions; clean live == frozen."""
+    dirty and after each of two compactions; clean live == frozen. →
+    (the figures, what phase 4j replays: the cap, each round's
+    mutations, survivors and the rebuild's and the live retriever's
+    answers on the first ``SHARDED_LIVE_QUERIES`` queries)."""
     from repro_torch.index.splade_index import build_splade_index
     cfg = corpus["cfg"]
     n_base = cfg.n_docs - LIVE_HOLD
@@ -2328,15 +2378,29 @@ def live_parity(rng, corpus, root: pathlib.Path, geometry: pathlib.Path,
         f"on {out['queries']} queries × 4 methods × k {LIVE_KS}; launches "
         f"{clean_l}")
 
+    nq = SHARDED_LIVE_QUERIES
+    replay = {"cap": cap, "rounds": [], "queries": {
+        name: corpus[name][:nq]
+        for name in ("q_embs", "q_term_ids", "q_term_weights")}}
+    ops = []        # this round's mutations, in order, for phase 4j
+
+    def upsert(*doc):
+        ops.append(("upsert", doc))
+        return retr.live_upsert(*doc)
+
+    def delete(g):
+        ops.append(("delete", g))
+        return retr.live_delete(g)
+
     # round 1: upsert the held-out docs, tombstone base and delta pids
     for j in range(n_base, cfg.n_docs):
-        retr.live_upsert(corpus["doc_embs"][j], corpus["doc_term_ids"][j],
-                         corpus["doc_term_weights"][j], corpus["doc_lens"][j])
+        upsert(corpus["doc_embs"][j], corpus["doc_term_ids"][j],
+               corpus["doc_term_weights"][j], corpus["doc_lens"][j])
     dead = set(rng.choice(n_base, LIVE_TOMB[0], replace=False).tolist())
     dead |= set((n_base + rng.choice(LIVE_HOLD, LIVE_TOMB[1],
                                      replace=False)).tolist())
     for g in sorted(dead):
-        assert retr.live_delete(g)
+        assert delete(g)
     docs = {name: corpus[name] for name in ("doc_embs", "doc_lens",
                                             "doc_term_ids",
                                             "doc_term_weights")}
@@ -2354,16 +2418,15 @@ def live_parity(rng, corpus, root: pathlib.Path, geometry: pathlib.Path,
             new["doc_embs"] = unit(new["doc_embs"] + 0.05 * rng.normal(
                 size=new["doc_embs"].shape)).astype(np.float32)
             for i, g in enumerate(upd.tolist()):
-                assert retr.live_delete(g)
+                assert delete(g)
                 dead.add(g)
-                assert retr.live_upsert(
-                    new["doc_embs"][i], new["doc_term_ids"][i],
-                    new["doc_term_weights"][i],
-                    new["doc_lens"][i]) == first + i
+                assert upsert(new["doc_embs"][i], new["doc_term_ids"][i],
+                              new["doc_term_weights"][i],
+                              new["doc_lens"][i]) == first + i
             late = first + rng.choice(LIVE_UPDATES, LIVE_TOMB[1],
                                       replace=False)
             for g in late.tolist():
-                assert retr.live_delete(g)
+                assert delete(g)
                 dead.add(g)
             docs = {name: np.concatenate([docs[name], new[name]])
                     for name in docs}
@@ -2385,6 +2448,15 @@ def live_parity(rng, corpus, root: pathlib.Path, geometry: pathlib.Path,
         compacted, compacted_l = live_answers(retr, corpus, counted, True)
         same_answers(compacted, want, f"round {rnd} compacted vs rebuild",
                      survivors)
+
+        def head(answers):
+            return {key: (p[:nq], sc[:nq]) for key, (p, sc) in
+                    answers.items()}
+
+        replay["rounds"].append({
+            "ops": ops, "survivors": survivors, "rebuild": head(want),
+            "dirty": head(dirty), "compacted": head(compacted)})
+        ops = []
         rounds.append({
             "docs": n_all, "survivors": len(survivors),
             "tombstones": len(dead), "rebuild_s": oracle_s,
@@ -2397,7 +2469,7 @@ def live_parity(rng, corpus, root: pathlib.Path, geometry: pathlib.Path,
             f"bit; delta rows vs rebuild {diffs}; dirty launches "
             f"{dirty_l}; compaction {reply['seconds']}")
     out["rounds"] = rounds
-    return out
+    return out, replay
 
 
 def reader_loop(retr, batch: dict, want, stop: threading.Event,
@@ -2457,7 +2529,8 @@ def compact_measured(retr, batch: dict, device, readers: int) -> dict:
     into the concatenation, the pool's write, the IVF's build and the
     other files), the readers' calls before and during it and over the
     swap, and the device memory after it, less the padded IVF the
-    readers may have made the new searcher build."""
+    readers may have made the new searcher build. ``retr`` may be a
+    shard group: the searcher it rewrites is its last shard's."""
     import torch
     from repro_torch.core.store import PagedStore
     from repro_torch.index import ivf as ivf_mod
@@ -2500,7 +2573,8 @@ def compact_measured(retr, batch: dict, device, readers: int) -> dict:
     over_swap = overlapping(swap_lo, swap_hi)
     if device.type == "cuda":
         torch.cuda.synchronize()
-    ivf = vars(retr.searcher).get("ivf_padded")
+    searcher = getattr(retr, "shards", [retr])[-1].searcher
+    ivf = vars(searcher).get("ivf_padded")
     allocated = (torch.cuda.memory_allocated() if device.type == "cuda"
                  else 0)
     ivf_bytes = 0 if ivf is None else -(-ivf.numel() * 4 // 512) * 512
@@ -2511,7 +2585,7 @@ def compact_measured(retr, batch: dict, device, readers: int) -> dict:
                  other_files=wi - host.seconds["write"]
                  - host.seconds["build_ivf"])
     return {"compacted": reply["compacted"],
-            "pool_tokens": int(retr.searcher.index.store.n_tokens),
+            "pool_tokens": int(searcher.index.store.n_tokens),
             "seconds": steps, "readers": readers,
             "reader_calls": len(walls),
             "reader_p50_before_s": (float(np.median(before)) if before
@@ -2735,12 +2809,14 @@ def corpus_request(corpus, i: int, method: str):
 def live_phase(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
                corpus, device) -> tuple:
     """Phase 4f (see the module docstring). → (the ``live`` line's
-    figures, the launches of (b)'s dirty run)."""
+    figures, the launches of (b)'s dirty run, what phase 4j replays of
+    (a))."""
     counted = counted_kernels()
     root = path / "live"
     t0 = time.perf_counter()
-    out = {"parity": live_parity(rng, corpus, root, path / "build" /
-                                 "colbert", device, counted)}
+    parity, replay = live_parity(rng, corpus, root,
+                                 path / "build" / "colbert", device, counted)
+    out = {"parity": parity}
     out["parity_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["tcp"] = live_tcp(corpus, root / "base", root, device)
@@ -2748,7 +2824,7 @@ def live_phase(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
     t0 = time.perf_counter()
     out["cost"], launches = live_cost(rng, s, path, topics, device, counted)
     out["cost_s"] = time.perf_counter() - t0
-    return out, launches
+    return out, launches, replay
 
 
 # ---------------------------------------------------------------------------
@@ -4348,6 +4424,379 @@ def sharded_phase(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
+# phase 4j: the sharded live index
+# ---------------------------------------------------------------------------
+
+# (a) holds the first SHARDED_LIVE_QUERIES of phase 3b's queries (phase
+# 4f (a) serves all of them); (b) deletes SHARDED_LIVE_DELETES[0] base
+# pids in each shard of the 4-shard group and SHARDED_LIVE_DELETES[1]
+# delta pids
+SHARDED_LIVE_QUERIES = 64
+SHARDED_LIVE_DELETES = (15, 4)
+
+
+class DeltaLaunches:
+    """While in use, counts the calls of ``LiveIndexState.exact_scores``:
+    each launches decompress_maxsim once, over the delta's candidates.
+    ``widest`` keeps the arguments of the call with the most rows, for
+    :func:`delta_kernel`."""
+
+    def __enter__(self):
+        from repro_torch.index.live import LiveIndexState
+        self.raw, self.calls = LiveIndexState.exact_scores, 0
+        self.widest = None
+
+        def counted(state, q, q_valid, pids_mat):
+            self.calls += 1
+            pids_mat = np.asarray(pids_mat)
+            if self.widest is None or pids_mat.shape[0] \
+                    > self.widest[3].shape[0]:
+                self.widest = (state, q, q_valid, pids_mat.copy())
+            return self.raw(state, q, q_valid, pids_mat)
+        LiveIndexState.exact_scores = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.index.live import LiveIndexState
+        LiveIndexState.exact_scores = self.raw
+
+
+def sharded_live_parity(replay: dict, base: pathlib.Path,
+                        root: pathlib.Path, device, counted: dict) -> list:
+    """4j (a): phase 4f (a)'s base split into 2 and 4 shards, each group
+    fed 4f (a)'s two rounds of mutations, each round ending in
+    ``compact_live()``; the four methods at each k of ``LIVE_KS``, dirty
+    and compacted, equal 4f (a)'s pinned card rebuild bit for bit and
+    the unsharded live retriever's answers in that round. → a line per
+    group."""
+    from repro_torch.core.sharded import build_sharded_retriever
+    from repro_torch.index.sharding import load_group, split_index_tree
+    plaid, ms = live_parity_params(replay["cap"])
+    queries = replay["queries"]
+    out = []
+    for n_shards in SHARD_COUNTS[1:]:
+        t0 = time.perf_counter()
+        dirs, bounds = load_group(split_index_tree(
+            base, n_shards, group_dir=root / f"S{n_shards}"))
+        line = {"shards": n_shards, "split_s": time.perf_counter() - t0,
+                "boundaries": bounds.tolist(), "rounds": []}
+        retr = build_sharded_retriever(dirs, bounds, plaid_params=plaid,
+                                       multistage_params=ms, device=device)
+        retr.enable_live()
+        for rnd, r in enumerate(replay["rounds"], 1):
+            for op, arg in r["ops"]:
+                if op == "upsert":
+                    retr.live_upsert(*arg)
+                elif not retr.live_delete(arg):
+                    raise AssertionError(f"delete {arg} refused")
+            label = f"sharded live (a) S={n_shards} round {rnd}"
+            t0 = time.perf_counter()
+            dirty, dirty_l = live_answers(retr, queries, counted, True)
+            dirty_s = time.perf_counter() - t0
+            same_answers(dirty, r["rebuild"], f"{label} dirty vs rebuild",
+                         r["survivors"])
+            same_answers(dirty, r["dirty"], f"{label} dirty vs unsharded")
+            reply = retr.compact_live()
+            compacted, compacted_l = live_answers(retr, queries, counted,
+                                                  True)
+            same_answers(compacted, r["rebuild"],
+                         f"{label} compacted vs rebuild", r["survivors"])
+            same_answers(compacted, r["compacted"],
+                         f"{label} compacted vs unsharded")
+            line["rounds"].append({
+                "mutations": len(r["ops"]), "dirty_serve_s": dirty_s,
+                "dirty_launches": dirty_l,
+                "compacted_launches": compacted_l,
+                "tombstones_per_shard": [len(sh.live.tombstones)
+                                         for sh in retr.shards],
+                "compaction": {"compacted": reply["compacted"],
+                               "seconds": reply["seconds"]}})
+            log(f"{label}: dirty and compacted answers == the pinned card "
+                f"rebuild of {len(r['survivors'])} survivors and == the "
+                f"unsharded live retriever bit for bit "
+                f"({len(queries['q_embs'])} queries × 4 methods × k "
+                f"{LIVE_KS}); dirty launches {dirty_l}; compaction "
+                f"{reply['seconds']}")
+        out.append(line)
+        del retr
+    return out
+
+
+def check_live_launches(label: str, n_shards: int, launches: dict,
+                        disp: dict, delta: int) -> None:
+    """A dirty run's launches against its stage records: per rerank or
+    hybrid group decompress_maxsim once a shard (``device_score:maxsim``)
+    and once more where the group has delta candidates (``delta``: the
+    calls of ``exact_scores``, at most one a group); no other kernel."""
+    groups = disp.get("device_score:maxsim", 0)
+    ok = (launches["decompress_maxsim"] == n_shards * groups + delta
+          and 0 < delta <= groups and groups > 0
+          and not any(c for name, c in launches.items()
+                      if name != "decompress_maxsim"))
+    if n_shards > 1:
+        ok = ok and disp.get("device_score:delta") == groups
+    if not ok:
+        raise RuntimeError(f"{label}: launches {launches}, {delta} delta "
+                           f"launches, against the stage records {disp}")
+
+
+def delta_kernel(call: tuple, s: Shapes, peaks) -> dict:
+    """The coordinator's delta launch of a dirty group, replayed from
+    ``call`` (``DeltaLaunches.widest``: the live state, the batch's
+    device query and mask, the (B, W) delta pid matrix, -1 padded):
+    decompress_maxsim on the tile inputs ``LiveIndexState.exact_scores``
+    builds, held to its plain version (allclose everywhere, the largest
+    error over the real candidates) and timed at that shape, against
+    the bound of its real candidates."""
+    from repro_torch.testing import ATOL, RTOL
+    state, q, q_valid, pids_mat = call
+    if state.nbits != 4:
+        raise AssertionError(f"delta nbits {state.nbits}, timed at 4")
+    mask_np = pids_mat >= 0
+    codes, packed, valid, cmask = state._to_device(
+        *state._gather_delta(pids_mat, with_packed=True), mask_np)
+    x = {"q": q, "packed": packed, "cids": codes, "valid": valid,
+         "q_valid": q_valid, "cmask": cmask, "centroids": state._centroids,
+         "bw": state._bweights}
+    fns = tile_fns(x, False)
+    got, want = fns["ms"]().cpu().numpy(), fns["plain"]().cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL,
+                               err_msg="the delta's decompress_maxsim")
+    B, W = pids_mat.shape
+    shape = dataclasses.replace(s, C=W)
+    return dict(measure(fns, lambda: bound(x, shape, peaks, False),
+                        graph=True),
+                B=int(B), C=int(W), real=int(mask_np.sum()),
+                max_abs_err=float(np.abs(got[mask_np]
+                                         - want[mask_np]).max()))
+
+
+def sharded_live_colbert(rng, s: Shapes, path: pathlib.Path, groups: dict,
+                         device, counted: dict, docs: list,
+                         dels: np.ndarray) -> dict:
+    """4j (b), colbert: a 4-shard group and the unsharded retriever at a
+    cap that cannot bind (phase 4i (c)'s open cap), live, fed (b)'s
+    upserts and deletes; 32 colbert requests (every other one made from
+    an upserted doc's tokens, so the delta's candidates reach both
+    device stages of the delta) through ``RetrievalServer`` at
+    max_batch=32: every answer equal to the unsharded live engine's,
+    ids up to exact-score ties (phase 4i (c)'s group-to-single bar for
+    colbert); the launches, decompress_maxsim 4 × ``device_score:exact``
+    plus the delta's (``device_score:exact:delta`` once a batch), no
+    other kernel. → the run's line."""
+    from repro_torch.core.plaid import PlaidParams
+    from repro_torch.index.builder import ColBERTIndex
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.testing import assert_same_up_to_exact_ties
+    longest = ColBERTIndex(path / "colbert").ivf.max_list_len()
+    plaid = PlaidParams(nprobe=s.nprobe, candidate_cap=s.Lq * s.nprobe
+                        * longest, ndocs=s.ndocs, k=100)
+    ref = shard_retriever(path, groups, 1, device, plaid).shards[0]
+    group = shard_retriever(path, groups, 4, device, plaid)
+    for r in (ref, group):
+        r.enable_live()
+        for i, (emb, tids, tw) in enumerate(docs):
+            if r.live_upsert(emb, tids, tw) != s.n_docs + i:
+                raise AssertionError("an upsert got another pid")
+        for g in dels.tolist():
+            if not r.live_delete(g):
+                raise AssertionError(f"delete {g} refused")
+    reqs = colbert_requests(rng, s, s.B, qid0=92_000)
+    for i in range(0, len(reqs), 2):
+        emb = docs[int(rng.integers(len(docs)))][0]
+        rows = emb[rng.integers(0, len(emb), s.Lq)]
+        reqs[i] = dataclasses.replace(reqs[i], q_emb=unit(
+            rows + 0.05 * rng.normal(size=rows.shape)))
+    warm = colbert_requests(rng, s, 4, qid0=93_000)
+    want = ServeEngine(ref).process_batch(fresh(reqs))
+    label = "sharded live S=4 dirty colbert"
+    with DeltaLaunches() as delta:
+        results, line = serve_run(
+            ServeEngine(group), warm, fresh(reqs), s.B, counted,
+            on_start=lambda: setattr(delta, "calls", 0))
+    disp = stage_dispatches(group)
+    launches = line["launches"]
+    exact = disp.get("device_score:exact", 0)
+    if not (launches["decompress_maxsim"] == 4 * exact + delta.calls
+            and 0 < delta.calls <= exact
+            and disp.get("device_score:approx:delta") == exact
+            and disp.get("device_score:exact:delta") == exact
+            and not any(c for name, c in launches.items()
+                        if name != "decompress_maxsim")):
+        raise RuntimeError(f"{label}: launches {launches}, {delta.calls} "
+                           f"delta launches, against the stage records "
+                           f"{disp}")
+    bitwise = 0
+    for a, b in zip(want, results, strict=True):
+        assert_same_up_to_exact_ties((a.pids, a.scores), (b.pids, b.scores),
+                                     what=f"{label} qid {b.qid}")
+        bitwise += bool(np.array_equal(a.pids, b.pids) and np.array_equal(
+            np.asarray(a.scores).view(np.uint32),
+            np.asarray(b.scores).view(np.uint32)))
+    in_delta = sum(int((r.pids >= s.n_docs).any()) for r in results)
+    line.update(shards=4, state="dirty", method="colbert",
+                cap=plaid.candidate_cap, stage_dispatches=disp,
+                delta_launches=delta.calls, answers_with_delta=in_delta,
+                bitwise=bitwise)
+    log(f"{label}: {line['qps']:.1f} QPS, p50 {line['p50_ms']:.1f} ms; "
+        f"stage walls {line['stage_wall_s']}; launches {launches} "
+        f"({delta.calls} for the delta); {in_delta} of {len(reqs)} answers "
+        f"hold a delta doc; equal to the unsharded live engine, ids up to "
+        f"exact-score ties ({bitwise} bit for bit)")
+    return line
+
+
+def sharded_live_serve(rng, s: Shapes, path: pathlib.Path,
+                       topics: np.ndarray, groups: dict, device,
+                       counted: dict, peaks) -> tuple:
+    """4j (b): phase 3's index at 1, 2 and 4 shards, live, the SPLADE
+    methods through ``RetrievalServer`` at max_batch=32 with the device
+    stage 1 in the turns of ``SHARD_ORDER``, clean and then after
+    ``LIVE_UPSERTS`` upserts and the deletes of ``SHARDED_LIVE_DELETES``:
+    every answer equal to the unsharded card live engine fed the same
+    trace bit for bit; that run's widest delta launch replayed and timed
+    (:func:`delta_kernel`); then colbert on a dirty 4-shard group
+    (:func:`sharded_live_colbert`). → (figures, the first dirty 4-shard
+    run's launches, the live groups, the requests)."""
+    from repro_torch.serving.engine import ServeEngine
+    reqs = make_requests(rng, s, topics, s.n_requests, qid0=90_000)
+    warm = make_requests(rng, s, topics, 6, qid0=91_000)
+    chunks = [reqs[lo:lo + s.B] for lo in range(0, len(reqs), s.B)]
+    ref = make_retriever(path, device)
+    retrs = {n: shard_retriever(path, groups, n, device, plaid_params(s))
+             for n in SHARD_COUNTS}
+    for r in (ref, *retrs.values()):
+        r.enable_live()
+    ref_engine = ServeEngine(ref, splade_backend="device")
+    docs = unit_docs(rng, s, topics, LIVE_UPSERTS)
+    bounds = groups[4][1]
+    per_shard, in_delta = SHARDED_LIVE_DELETES
+    dels = np.concatenate(
+        [rng.choice(np.arange(lo, hi), per_shard, replace=False)
+         for lo, hi in zip(bounds[:-1], bounds[1:])]
+        + [s.n_docs + rng.choice(LIVE_UPSERTS, in_delta, replace=False)])
+    out = {"requests": len(reqs), "max_batch": s.B,
+           "upserts": LIVE_UPSERTS, "deletes": dels.tolist(), "runs": []}
+    launches = None
+    for state in ("clean", "dirty"):
+        if state == "dirty":
+            for r in (ref, *retrs.values()):
+                for i, (emb, tids, tw) in enumerate(docs):
+                    if r.live_upsert(emb, tids, tw) != s.n_docs + i:
+                        raise AssertionError("an upsert got another pid")
+                for g in dels.tolist():
+                    if not r.live_delete(g):
+                        raise AssertionError(f"delete {g} refused")
+            out["views"] = [len(sh.live.tombstones)
+                            for sh in retrs[4].shards]
+        want = [x for c in chunks
+                for x in ref_engine.process_batch(fresh(c))]
+        for n_shards in SHARD_ORDER:
+            retr = retrs[n_shards]
+            label = f"sharded live S={n_shards} {state}"
+            engine = ServeEngine(retr, splade_backend="device")
+            if engine.pipelined:
+                raise AssertionError(f"{label}: a live engine pipelines")
+            with DeltaLaunches() as delta:
+                results, line = serve_run(
+                    engine, warm, fresh(reqs), s.B, counted,
+                    on_start=lambda d=delta: setattr(d, "calls", 0))
+            disp = stage_dispatches(retr)
+            if state == "clean":
+                check_shard_launches(label, n_shards, "device",
+                                     line["launches"], disp)
+            else:
+                check_live_launches(label, n_shards, line["launches"], disp,
+                                    delta.calls)
+                if n_shards == 4 and launches is None:
+                    launches = line["launches"]
+                    out["delta_kernel"] = dict(
+                        delta_kernel(delta.widest, s, peaks),
+                        launches=delta.calls)
+            same_bits(want, results, label)
+            line.update(shards=n_shards, state=state, stage_dispatches=disp,
+                        delta_launches=delta.calls)
+            out["runs"].append(line)
+            log(f"{label}: {line['qps']:.1f} QPS, p50 {line['p50_ms']:.1f} "
+                f"ms, p99 {line['p99_ms']:.1f} ms; stage walls "
+                f"{line['stage_wall_s']}; launches {line['launches']} "
+                f"({delta.calls} for the delta); equal to the unsharded "
+                "live engine bit for bit")
+    log(f"sharded live S=4 dirty, the delta's decompress_maxsim at "
+        f"(B, C) = ({out['delta_kernel']['B']}, "
+        f"{out['delta_kernel']['C']}), {out['delta_kernel']['real']} real "
+        f"candidates, held to plain: {out['delta_kernel']}")
+    out["colbert"] = sharded_live_colbert(rng, s, path, groups, device,
+                                          counted, docs, dels)
+    return out, launches, retrs, reqs
+
+
+def sharded_live_compaction(rng, s: Shapes, path: pathlib.Path,
+                            topics: np.ndarray, retrs: dict, reqs,
+                            device) -> dict:
+    """4j (c): the 4-shard group compacts under ``LIVE_READERS`` reader
+    threads (every answer unchanged), takes ``LIVE_MORE`` more upserts
+    and compacts alone: the device memory after each equal (less the
+    padded IVF); then the one-shard group compacts under the readers,
+    the steps of a compaction that rewrites the whole pool."""
+    sp = [r for r in reqs if r.method != "colbert"][:s.B]
+    batch = {"method": [r.method for r in sp],
+             "q_embs": [r.q_emb for r in sp],
+             "term_ids": [r.term_ids for r in sp],
+             "term_weights": [r.term_weights for r in sp],
+             "alpha": [r.alpha for r in sp], "k": 100}
+    four = retrs[4]
+    out = {"S4": [compact_measured(four, batch, device, LIVE_READERS)]}
+    for emb, tids, tw in unit_docs(rng, s, topics, LIVE_MORE):
+        four.live_upsert(emb, tids, tw)
+    out["S4"].append(compact_measured(four, batch, device, 0))
+    mem = [c["memory_less_ivf"] for c in out["S4"]]
+    if mem[0] != mem[1]:
+        raise AssertionError(f"device memory moved across the 4-shard "
+                             f"group's compactions: {out['S4']}")
+    out["S1"] = compact_measured(retrs[1], batch, device, LIVE_READERS)
+    for c in path.glob("*.g*"):
+        shutil.rmtree(c)
+    log(f"sharded live (c): 4 shards compacted under {LIVE_READERS} readers "
+        f"and alone, every answer unchanged, memory flat: {out['S4']}; one "
+        f"shard: {out['S1']}")
+    return out
+
+
+def sharded_live_phase(rng, s: Shapes, path: pathlib.Path,
+                       topics: np.ndarray, replay: dict, device,
+                       peaks) -> tuple:
+    """Phase 4j (see the module docstring). → (the ``sharded_live``
+    line's figures, the launches of (b)'s first dirty run at 4
+    shards)."""
+    from repro_torch.index.sharding import load_group, split_index_tree
+    counted = counted_kernels()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_live_") \
+            as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        out["parity"] = sharded_live_parity(replay, path / "live" / "base",
+                                            tmp / "parity", device, counted)
+        out["parity_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        groups = {n: load_group(split_index_tree(path, n,
+                                                 group_dir=tmp / f"S{n}"))
+                  for n in SHARD_COUNTS[1:]}
+        out["split_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["serve"], launches, retrs, reqs = sharded_live_serve(
+            rng, s, path, topics, groups, device, counted, peaks)
+        out["serve_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["compaction"] = sharded_live_compaction(rng, s, path, topics,
+                                                    retrs, reqs, device)
+        out["compaction_s"] = time.perf_counter() - t0
+        del retrs
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 3b: the index build on the card
 # ---------------------------------------------------------------------------
 
@@ -5162,7 +5611,8 @@ def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
                    ctimes: dict, err: dict, s: Shapes, piped: dict,
                    built: dict, tcp: dict, live: dict, load: dict,
                    launcher: dict, builtin: dict, sharded: dict,
-                   shard_kernels: dict) -> list:
+                   shard_kernels: dict, sharded_live: dict,
+                   delta: dict) -> list:
     """The ``{"kernels": [...]}`` line's entries: one per main path and
     kernel, with that path's launches from its own run (counts set to 0
     just before it, read just after) and the kernel timed at that path's
@@ -5190,7 +5640,12 @@ def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
     with the device stage 1 at depth 1 (``sharded``: its launches) with
     the two kernels of its path, held to their plain versions and timed
     at a shard's shapes (``shard_kernels``: decompress_maxsim at shard
-    0's candidate width, the SPLADE top-k entry on its postings)."""
+    0's candidate width, the SPLADE top-k entry on its postings); phase
+    4j (b)'s first dirty run of 4 shards (``sharded_live``: its
+    launches) with decompress_maxsim, the one kernel of a dirty group,
+    timed at shard 0's width, and under ``delta`` the coordinator's
+    delta launch of that run (its launches, and its time, error and
+    bound at the (B, C) that run gave its widest call)."""
     paths = [("serve_device", served["device"][0]["launches"], kname,
               times[kname]["batch"], err[kname], s.C) for kname in SOURCES]
     paths += [("front_door", door, kname, times[kname]["batch"], err[kname],
@@ -5238,6 +5693,10 @@ def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
                shard_kernels[kname]["max_abs_err"],
                shard_kernels[kname].get("C", s.C))
               for kname in ("splade_topk", "decompress_maxsim")]
+    paths += [("sharded_live", sharded_live, "decompress_maxsim",
+               shard_kernels["decompress_maxsim"],
+               shard_kernels["decompress_maxsim"]["max_abs_err"],
+               shard_kernels["decompress_maxsim"]["C"])]
     out = []
     for path_name, launches, kname, t, max_err, C in paths:
         src, replaces = SOURCES[kname]
@@ -5248,6 +5707,13 @@ def kernel_entries(served: dict, colbert: dict, door: dict, times: dict,
             "launches": launches[kname], "max_abs_err": max_err,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": t["library_ms"]})
+        if path_name == "sharded_live":
+            out[-1]["delta"] = {
+                key: delta[key] for key in ("launches", "B", "C", "real",
+                                            "max_abs_err", "ms", "plain_ms",
+                                            "library_ms")}
+            out[-1]["delta"].update(zip(("bound_ms", "bound_by"),
+                                        delta["bound"]))
     return out
 
 
@@ -5324,8 +5790,8 @@ def main(argv=None) -> int:
                                       topics, device)
         log(f"phase 4e tcp front: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        live, live_launches = live_phase(sub_rng(args.seed, "live"), s,
-                                         path, topics, build_corpus, device)
+        live, live_launches, live_replay = live_phase(
+            sub_rng(args.seed, "live"), s, path, topics, build_corpus, device)
         del build_corpus
         log(f"phase 4f live index: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
@@ -5341,6 +5807,12 @@ def main(argv=None) -> int:
         sharded, sharded_launches, shard_times = sharded_phase(
             sub_rng(args.seed, "sharded"), s, path, topics, device, peaks)
         log(f"phase 4i sharded: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        sharded_live, sharded_live_launches = sharded_live_phase(
+            sub_rng(args.seed, "sharded live"), s, path, topics, live_replay,
+            device, peaks)
+        del live_replay
+        log(f"phase 4j sharded live: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         times = time_kernels(rng, s, device, peaks, path, topics, args.seed)
         ctimes = time_colbert(sub_rng(args.seed, "colbert timing"), s,
@@ -5373,7 +5845,9 @@ def main(argv=None) -> int:
                              tcp_launches, live_launches, load_launches,
                              launcher_launches,
                              launcher["bounded"]["b1_kernels"],
-                             sharded_launches[4], shard_times)
+                             sharded_launches[4], shard_times,
+                             sharded_live_launches,
+                             sharded_live["serve"]["delta_kernel"])
     print(json.dumps({"phase": "build", **built, "card": name,
                       "power_limit": limit}), flush=True)
     print(json.dumps({"phase": "stage1_breakdown", **times["stage1"],
@@ -5402,6 +5876,8 @@ def main(argv=None) -> int:
     print(json.dumps({"phase": "launcher", **launcher, "card": name,
                       "power_limit": limit}), flush=True)
     print(json.dumps({"phase": "sharded", **sharded, "card": name,
+                      "power_limit": limit}), flush=True)
+    print(json.dumps({"phase": "sharded_live", **sharded_live, "card": name,
                       "power_limit": limit}), flush=True)
     log(f"chip_smoke wall, build included: "
         f"{time.perf_counter() - t_all:.1f} s")

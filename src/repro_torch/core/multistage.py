@@ -67,6 +67,31 @@ METHODS = ("colbert", "splade", "rerank", "hybrid")
 LIVE_NOT_ENABLED = "live index not enabled (enable_live / --live)"
 
 
+def write_compacted(index, splade, live, n_take: int, gen: int,
+                    marks: list) -> tuple:
+    """Write ``index`` and ``splade`` with the first ``n_take`` delta docs
+    merged in as generation ``gen`` beside ``index`` (``<index>.g<gen>``,
+    ``splade.g<gen>``), appending the clock to ``marks`` after each. →
+    (colbert dir, splade dir)."""
+    col_dir = index.path.with_name(f"{index.path.name}.g{gen}")
+    spl_dir = index.path.with_name(f"splade.g{gen}")
+    live_mod.compact_colbert_dir(index, live, n_take, col_dir)
+    marks.append(time.perf_counter())
+    live_mod.compact_splade_dir(splade, live, n_take, spl_dir)
+    marks.append(time.perf_counter())
+    return col_dir, spl_dir
+
+
+def compaction_reply(n_take: int, col_dir, spl_dir, marks: list) -> dict:
+    """``compact_live``'s reply: each step's wall from its six marks."""
+    steps = ("colbert_dir", "splade_dir", "load", "gate_wait", "swap")
+    seconds = {name: marks[i + 1] - marks[i]
+               for i, name in enumerate(steps)}
+    seconds["total"] = marks[-1] - marks[0]
+    return {"compacted": n_take, "colbert_dir": str(col_dir),
+            "splade_dir": str(spl_dir), "seconds": seconds}
+
+
 def check_splade_backend(backend: str) -> str:
     if backend not in SPLADE_BACKENDS:
         raise ValueError(f"splade backend {backend!r} not in "
@@ -244,13 +269,9 @@ class MultiStageRetriever:
                 return None
             marks = [time.perf_counter()]
             idx = self.searcher.index
-            gen = self.index_generation + 1
-            col_dir = idx.path.with_name(f"{idx.path.name}.g{gen}")
-            spl_dir = idx.path.with_name(f"splade.g{gen}")
-            live_mod.compact_colbert_dir(idx, live, n_take, col_dir)
-            marks.append(time.perf_counter())
-            live_mod.compact_splade_dir(self.splade, live, n_take, spl_dir)
-            marks.append(time.perf_counter())
+            col_dir, spl_dir = write_compacted(idx, self.splade, live, n_take,
+                                               self.index_generation + 1,
+                                               marks)
             new_searcher = PLAIDSearcher(
                 ColBERTIndex(col_dir, mode=idx.store.mode),
                 self.searcher.params, device=self.device)
@@ -266,12 +287,7 @@ class MultiStageRetriever:
                 live.rebase(n_take)
                 self.bump_index_generation()
             marks.append(time.perf_counter())
-        steps = ("colbert_dir", "splade_dir", "load", "gate_wait", "swap")
-        seconds = {name: marks[i + 1] - marks[i]
-                   for i, name in enumerate(steps)}
-        seconds["total"] = marks[-1] - marks[0]
-        return {"compacted": n_take, "colbert_dir": str(col_dir),
-                "splade_dir": str(spl_dir), "seconds": seconds}
+        return compaction_reply(n_take, col_dir, spl_dir, marks)
 
     def _plaid_salt(self) -> str:
         sp = self.searcher.params
@@ -340,12 +356,18 @@ class MultiStageRetriever:
         with the delta segment's own top-k. The merge of top-k lists of
         disjoint partitions under (score desc, pid asc) is the top-k of
         their union, so the result is what one index over base ∪ delta
-        minus the tombstones scores."""
-        # imported here: core.sharded subclasses this module's retriever
-        from repro_torch.core.sharded import merge_topk
+        minus the tombstones scores. A shard's ``LiveView`` has no delta:
+        its base rows are the answer."""
         base = self.splade.score_batch_host(term_ids, term_weights, k,
                                             exclude=live.base_exclude)
-        d_pids, d_scores = live.splade_delta_topk(term_ids, term_weights, k)
+        delta_topk = getattr(live, "splade_delta_topk", None)
+        if delta_topk is None:
+            # a shard of a group holds a LiveView: its own tombstones and
+            # no delta, whose rows merge at the group's coordinator
+            return base
+        # imported here: core.sharded subclasses this module's retriever
+        from repro_torch.core.sharded import merge_topk
+        d_pids, d_scores = delta_topk(term_ids, term_weights, k)
         return merge_topk(
             np.concatenate([base[0].astype(np.int64), d_pids], axis=1),
             np.concatenate([base[1], d_scores], axis=1), k, pad_score=0.0)
@@ -516,12 +538,9 @@ class MultiStageRetriever:
             if state is None:
                 return cb.with_state(c_codes=codes, c_valid=valid)
             # the delta's candidates: its docs holding a probed centroid
-            d_lists = state.delta_candidates(s["cids_g"])
-            d_cand = np.full((len(d_lists),
-                              max(1, max(map(len, d_lists)))), -1, np.int64)
-            for b, arr in enumerate(d_lists):
-                d_cand[b, :len(arr)] = arr
-            return cb.with_state(c_codes=codes, c_valid=valid, d_cand=d_cand)
+            return cb.with_state(
+                c_codes=codes, c_valid=valid,
+                d_cand=state.delta_candidate_matrix(s["cids_g"]))
 
         def live_survivors(s, codes, valid):
             from repro_torch.core.sharded import merge_topk

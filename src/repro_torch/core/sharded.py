@@ -33,8 +33,15 @@ by approximate rank; and a ``splade_max_df`` truncates each shard's
 postings on its own, so the bit-for-bit bar holds with untruncated
 postings (``splade_max_df=None``).
 
-The live index of a group is not here: ``enable_live`` and the other
-mutations raise.
+A live group (:meth:`ShardedRetriever.enable_live`) keeps one delta
+segment and the tombstone set at the coordinator; each shard holds a
+``LiveView`` of its own tombstones, which its host stage 1 excludes
+before its top-k. A dirty group's plans merge the delta's SPLADE rows
+into the shards', drop tombstoned colbert candidates before the
+``ndocs`` cut and score the delta's candidates at the coordinator in
+device stages of their own. A compaction merges the delta into the
+last shard alone. Each answer equals a rebuild of the surviving corpus
+bit for bit, as the unsharded live index's does.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from __future__ import annotations
 import os
 import pathlib
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence
 
@@ -51,23 +59,20 @@ import torch
 from repro_torch.common import HostCopy
 from repro_torch.core import hybrid as hybrid_mod
 from repro_torch.core.multistage import (MultiStageRetriever,
-                                         check_splade_backend)
+                                         check_splade_backend,
+                                         compaction_reply, write_compacted)
 from repro_torch.core.plaid import (PLAIDSearcher, PlaidParams,
                                     pad_query_batch_host,
                                     stage1_centroid_probe_batch,
                                     stage2_candidates_batch,
                                     stage3_approx_score_batch, topk_host)
+from repro_torch.index import live as live_mod
 from repro_torch.index.builder import ColBERTIndex
 from repro_torch.index.splade_device import SpladeDeviceCache
 from repro_torch.index.splade_index import SpladeIndex
 from repro_torch.serving.context import freeze
 from repro_torch.serving.pipeline import (DEVICE, HOST, PipelineStats, Stage,
                                           StagePlan)
-
-# what a group's live methods raise: its live index is a later slice
-LIVE_NOT_PORTED = ("a live index over a shard group is ROADMAP item 3a-ii, "
-                   "not ported yet; serve a single index with enable_live")
-
 
 def merge_topk(pids: np.ndarray, scores: np.ndarray, k: int,
                pad_score: float = -np.inf):
@@ -138,14 +143,36 @@ def _concat_shard_topk(shard_states):
     return pids, scores
 
 
-def fuse_splade_state(cb, first_k: int):
+def _append_splade_delta(term_ids, term_weights, pids, scores,
+                         first_k: int, live):
+    """Widen the shards' concatenated stage-1 rows with the live delta's
+    top-k (global pids ≥ ``live.base_n``). Tombstoned base docs never
+    reach here (each shard excluded its own before its top-k) and the
+    delta's tombstoned docs are excluded inside ``splade_delta_topk``,
+    so the merge sees surviving documents only."""
+    if live is None or not live.n_delta:
+        return pids, scores
+    d_pids, d_scores = live.splade_delta_topk(list(term_ids),
+                                              list(term_weights), first_k)
+    return (np.concatenate([pids, d_pids], axis=1),
+            np.concatenate([scores, d_scores], axis=1))
+
+
+def _merged_stage1(cb, first_k: int, live):
+    """The shards' stage-1 rows and the delta's merged to first_k."""
+    pids, scores = _append_splade_delta(
+        cb.term_ids, cb.term_weights, *_concat_shard_topk(cb.shard_states),
+        first_k, live)
+    return merge_topk(pids, scores, first_k, pad_score=0.0)
+
+
+def fuse_splade_state(cb, first_k: int, live=None):
     """Terminal fuse of the splade method: merge the shards' stage-1
-    lists and cut to the request's k. The ``first_k``-wide merged rows
-    stay in the state, so that the stage-1 cache can store them (a
-    splade answer warms the entry a later rerank or hybrid request
-    reads)."""
-    pids_b, s_scores = merge_topk(*_concat_shard_topk(cb.shard_states),
-                                  first_k, pad_score=0.0)
+    lists (and a dirty group's delta rows) and cut to the request's k.
+    The ``first_k``-wide merged rows stay in the state, so that the
+    stage-1 cache can store them (a splade answer warms the entry a
+    later rerank or hybrid request reads)."""
+    pids_b, s_scores = _merged_stage1(cb, first_k, live)
     return cb.evolve(pids=pids_b[:, :cb.k], scores=s_scores[:, :cb.k]
                      ).with_state(pids_b=pids_b, s_scores=s_scores)
 
@@ -159,20 +186,20 @@ def stage1_state_from_rows(cb, pids_b, s_scores):
                          q_valid=q_valid)
 
 
-def merge_stage1_state(cb, first_k: int):
+def merge_stage1_state(cb, first_k: int, live=None):
     """(B, first_k) global candidates — the single index's
-    ``run_splade_batch`` rows, bit for bit — and the padded query
-    batch."""
-    pids_b, s_scores = merge_topk(*_concat_shard_topk(cb.shard_states),
-                                  first_k, pad_score=0.0)
-    return stage1_state_from_rows(cb, pids_b, s_scores)
+    ``run_splade_batch`` rows, bit for bit, a dirty group's delta rows
+    merged in — and the padded query batch."""
+    return stage1_state_from_rows(cb, *_merged_stage1(cb, first_k, live))
 
 
 def fuse_scatter_rerank(cb, method: str, normalizer: str, device):
     """Terminal rerank/hybrid fuse: wait for each shard's narrow score
     slice (its copy to the host behind an event), scatter it back into
-    the global candidate columns (-inf where no candidate is), α-fuse
-    for hybrid and take the (score desc, candidate index asc) top-k.
+    the global candidate columns (-inf where no candidate is), fill the
+    columns of a dirty group's delta candidates with their scores
+    (:func:`score_delta_state`), α-fuse for hybrid and take the (score
+    desc, candidate index asc) top-k.
 
     Hybrid's normaliser needs statistics over a query's whole candidate
     list, so it runs after the scatter, on ``device`` (the current
@@ -184,6 +211,10 @@ def fuse_scatter_rerank(cb, method: str, normalizer: str, device):
     for s in cb.shard_states:
         (c,) = s["c"].wait()                # this shard's event only
         scatter_scores(final, s["cols"], c)
+    if "delta" in st:
+        # the delta's candidates, owned by no shard
+        (d,) = st["delta"].wait()
+        final = np.where(st["delta_mask"], d, final)
     if method == "hybrid":
         s_scores, c_scores, mask = (
             torch.as_tensor(a, device=device)
@@ -197,30 +228,64 @@ def fuse_scatter_rerank(cb, method: str, normalizer: str, device):
     return cb.evolve(pids=pids, scores=scores)
 
 
-def merge_approx_state(cb, offsets, ndocs: int):
+def merge_approx_state(cb, offsets, ndocs: int, live=None):
     """Global PLAID survivor selection: remap the shards' candidates to
     global pids, merge their approximate scores and make the ``ndocs``
     cut over the whole group (a cut per shard would not be the single
-    index's)."""
+    index's). A dirty group's tombstoned base candidates drop out before
+    the cut (pid -1, -inf: what a padded slot is) and the delta's
+    candidates join with the approximate scores their device stage gave
+    (``d_cand``, ``d_approx``)."""
     gpids = np.concatenate(
         [np.where(s["cand_np"] >= 0, s["cand_np"] + offsets[i], -1)
          for i, s in enumerate(cb.shard_states)], axis=1)
     ascore = np.concatenate([s["approx_np"] for s in cb.shard_states],
                             axis=1)
+    if live is not None:
+        drop = live.is_tombstoned(gpids) & (gpids >= 0)
+        gpids = np.concatenate([np.where(drop, -1, gpids),
+                                cb.state["d_cand"]], axis=1)
+        ascore = np.concatenate([np.where(drop, -np.inf, ascore),
+                                 cb.state["d_approx"]], axis=1)
     final_g, _ = merge_topk(gpids, ascore, ndocs)
     return cb.with_state(final_g=final_g)
 
 
 def fuse_colbert_state(cb):
-    """Terminal PLAID fuse: every survivor is owned by exactly one shard;
-    scatter each shard's narrow exact scores back into the survivor
-    matrix and merge to the request's k."""
-    g = cb.state["final_g"]
+    """Terminal PLAID fuse: every base survivor is owned by exactly one
+    shard; scatter each shard's narrow exact scores back into the
+    survivor matrix, fill a dirty group's delta survivors with theirs
+    (:func:`score_delta_state`) and merge to the request's k."""
+    st = cb.state
+    g = st["final_g"]
     ex = np.full(g.shape, -np.inf, np.float32)
     for s in cb.shard_states:
         scatter_scores(ex, s["cols"], s["exact"])
+    if "delta_scores" in st:
+        ex = np.where(st["delta_mask"], st["delta_scores"], ex)
     pids, scores = merge_topk(g, ex, cb.k)
     return cb.evolve(pids=pids, scores=scores)
+
+
+def score_delta_state(cb, live, pids_key: str, wait: bool):
+    """Device stage body of a dirty group: the exact scores of the
+    delta's candidates in ``cb.state[pids_key]``, which no shard owns,
+    by one decompress_maxsim launch at the coordinator (the unsharded
+    live path's launch on the same (B, C) matrix). Their copy to the
+    host is enqueued behind an event (``delta``) or, with ``wait``, for
+    a host stage next, waited for (``delta_scores``). A batch without
+    delta candidates launches nothing."""
+    pids = cb.state[pids_key]
+    mask = pids >= live.base_n
+    if not mask.any():
+        return cb
+    q, q_valid = (torch.as_tensor(a, device=live.device)
+                  for a in (cb.state["q"], cb.state["q_valid"]))
+    copy = HostCopy(live.exact_scores(q, q_valid, np.where(mask, pids, -1)))
+    if wait:
+        (scores,) = copy.wait()
+        return cb.with_state(delta_scores=scores, delta_mask=mask)
+    return cb.with_state(delta=copy, delta_mask=mask)
 
 
 class CombinedAccessStats:
@@ -289,6 +354,9 @@ class ShardedRetriever(MultiStageRetriever):
         # centroid probe, hybrid's normaliser) runs
         self.device = self.shards[0].device
         self._lock = threading.Lock()
+        # one mutation of the group's live bookkeeping at a time (a
+        # delete and its shard view, a compaction)
+        self._live_mut = threading.Lock()
         self._plans: dict = {}
         self.pipeline_stats = (self.shards[0].pipeline_stats
                                if self.n_shards == 1 else PipelineStats())
@@ -329,13 +397,17 @@ class ShardedRetriever(MultiStageRetriever):
         """Every shard's padded-postings device cache, one per shard."""
         return [sh.splade_device_cache() for sh in self.shards]
 
-    def _shard_stage1(self, term_ids, term_weights, k: int, backend: str):
+    def _shard_stage1(self, term_ids, term_weights, k: int, backend: str,
+                      live: bool = False):
         """Every shard's stage-1 top-k as (global pids, scores), in shard
         order. On the device every shard's top-k is launched before any
-        is copied back, so the launches queue back to back."""
-        if backend == "host":
+        is copied back, so the launches queue back to back. ``live``
+        (the batch's routing): every shard scores on the host CSR with
+        its own tombstones excluded before its top-k, whatever the
+        backend; otherwise no shard does, whatever its view holds."""
+        if backend == "host" or live:
             outs = [sh.run_splade_batch(term_ids, term_weights, k,
-                                        backend="host")
+                                        backend="host", live=live)
                     for sh in self.shards]
         else:
             launched = [sh.splade_device_cache().dispatch_topk(
@@ -346,17 +418,27 @@ class ShardedRetriever(MultiStageRetriever):
 
     def run_splade_batch(self, term_ids, term_weights,
                          k: Optional[int] = None,
-                         backend: Optional[str] = None):
-        """Group stage 1: every shard's top-k merged into the global one,
-        the single index's rows bit for bit. → host (pids (B, k) int64
-        −1 padded, scores (B, k) f32)."""
+                         backend: Optional[str] = None,
+                         live: Optional[bool] = None):
+        """Group stage 1: every shard's top-k merged into the global one
+        (a dirty group's delta rows merged in), the single index's rows
+        bit for bit. ``live`` as for the unsharded retriever; one shard
+        delegates. → host (pids (B, k) int64 −1 padded, scores (B, k)
+        f32)."""
+        if self.n_shards == 1:
+            return self.shards[0].run_splade_batch(term_ids, term_weights,
+                                                   k, backend, live)
         backend = check_splade_backend(backend or self.splade_backend)
         k = self.params.first_k if k is None else k
+        live = self._live_dirty() if live is None else live
         outs = self._shard_stage1(list(term_ids), list(term_weights), k,
-                                  backend)
-        return merge_topk(np.concatenate([p for p, _ in outs], axis=1),
-                          np.concatenate([s for _, s in outs], axis=1), k,
-                          pad_score=0.0)
+                                  backend, live)
+        pids, scores = _append_splade_delta(
+            term_ids, term_weights,
+            np.concatenate([p for p, _ in outs], axis=1),
+            np.concatenate([s for _, s in outs], axis=1), k,
+            self.live if live else None)
+        return merge_topk(pids, scores, k, pad_score=0.0)
 
     # ------------------------------------------------------------------
     # entry points (one shard delegates: the unsharded path bit for bit)
@@ -398,19 +480,110 @@ class ShardedRetriever(MultiStageRetriever):
         return self.shards[0]._plaid_salt()
 
     # ------------------------------------------------------------------
-    # the live index of a group: ROADMAP item 3a-ii
+    # the live index of a group (live_upsert and live_stats are the
+    # unsharded retriever's: the delta lives at the coordinator)
     # ------------------------------------------------------------------
-    def enable_live(self):
-        raise NotImplementedError(LIVE_NOT_PORTED)
+    def enable_live(self) -> live_mod.LiveIndexState:
+        """Attach the group's live state and return it. Idempotent. One
+        shard delegates (the group and its shard share the state). More
+        keep the delta segment and the tombstone set at the coordinator,
+        on the group's device, with new pids appended past the last
+        boundary; each shard gets a ``LiveView`` of its own tombstones,
+        which its host stage 1 excludes before its top-k."""
+        if self.live is not None:
+            return self.live
+        if self.n_shards == 1:
+            self.live = self.shards[0].enable_live()
+            return self.live
+        if any(sh.searcher.device_resident for sh in self.shards):
+            raise ValueError("live index requires the host (mmap) tier; "
+                             "device_resident pools are frozen")
+        live = live_mod.LiveIndexState(self.shards[0].searcher.index,
+                                       self.shards[0].splade,
+                                       device=self.device)
+        # the geometry is every shard's; the pid space is the group's
+        live.base_n = self.n_docs
+        for sh in self.shards:
+            sh.live = live_mod.LiveView()
+        self.live = live
+        return live
 
-    def live_upsert(self, doc_emb, term_ids, term_weights, doc_len=None):
-        raise NotImplementedError(LIVE_NOT_PORTED)
+    def _sync_shard_view(self, j: int):
+        """Shard ``j``'s view := the group's tombstones in its range,
+        shard-local."""
+        lo, hi = int(self.offsets[j]), int(self.offsets[j + 1])
+        self.shards[j].live.update(self.live.local_tombstones(lo, hi),
+                                   generation=self.index_generation)
 
-    def live_delete(self, gpid: int):
-        raise NotImplementedError(LIVE_NOT_PORTED)
+    def live_delete(self, gpid: int) -> bool:
+        """Tombstone a global pid; True if it was live before. A base
+        pid also reaches the view of the shard that owns it, and only
+        that one; a delta pid stays at the coordinator."""
+        live = self._require_live()
+        with self._live_mut:
+            if not live.delete(gpid):
+                return False
+            gpid = int(gpid)
+            if self.n_shards > 1 and gpid < live.base_n:
+                self._sync_shard_view(int(np.searchsorted(
+                    self.offsets, gpid, side="right") - 1))
+            self.bump_index_generation()
+        return True
 
     def compact_live(self):
-        raise NotImplementedError(LIVE_NOT_PORTED)
+        """Merge the delta prefix into the **last** shard: delta doc j's
+        global pid ``base_n + j`` is ``offsets[-1] + j``, so appending it
+        to the last shard keeps every pid. The last shard's new
+        directories and retriever (its tables on that shard's device)
+        are built outside the gate; the swap (replace ``shards[-1]``,
+        grow the last boundary, drop the plans, rebase, the new shard's
+        view, the generation) drains the readers under the write gate.
+        The other shards, their device caches and views stay as they
+        are. One shard delegates. → what the unsharded ``compact_live``
+        returns: None when the delta is empty, else {"compacted",
+        "colbert_dir", "splade_dir", "seconds": each step's wall}."""
+        if self.n_shards == 1:
+            out = self.shards[0].compact_live()
+            self.index_generation = self.shards[0].index_generation
+            if out is not None:
+                self.offsets[-1] += out["compacted"]
+                self.n_docs = int(self.offsets[-1])
+                with self._lock:
+                    self._plans.clear()
+            return out
+        live = self._require_live()
+        with self._live_mut:
+            n_take = live.snapshot_delta()
+            if n_take == 0:
+                return None
+            marks = [time.perf_counter()]
+            j = self.n_shards - 1
+            last = self.shards[j]
+            idx = last.searcher.index
+            col_dir, spl_dir = write_compacted(idx, last.splade, live, n_take,
+                                               self.index_generation + 1,
+                                               marks)
+            new = MultiStageRetriever(
+                SpladeIndex.load(spl_dir),
+                PLAIDSearcher(ColBERTIndex(col_dir, mode=idx.store.mode),
+                              last.searcher.params, device=last.device),
+                self.params, device=last.device)
+            new.set_splade_backend(self.splade_backend)
+            new.set_rerank_backend(last.rerank_backend)
+            marks.append(time.perf_counter())
+            with live.gate.write():
+                marks.append(time.perf_counter())
+                self.shards[j] = new
+                self.offsets[j + 1] += n_take
+                self.n_docs = int(self.offsets[-1])
+                with self._lock:
+                    self._plans.clear()
+                live.rebase(n_take)
+                new.live = live_mod.LiveView()
+                self._sync_shard_view(j)
+                self.bump_index_generation()
+            marks.append(time.perf_counter())
+        return compaction_reply(n_take, col_dir, spl_dir, marks)
 
     # ------------------------------------------------------------------
     # the group's stage-1 cache
@@ -455,11 +628,20 @@ class ShardedRetriever(MultiStageRetriever):
         only numpy, device launches and syncs live in device stages.
         Per-shard stages carry ``fanout=n_shards`` and read and write the
         batch's shard axis; the ``merge_topk`` stages run on the host
-        over the shards' host arrays."""
+        over the shards' host arrays.
+
+        ``live``: the plan of a dirty live group. Stage 1 runs every
+        shard on the host with its tombstones excluded; the merges take
+        the delta's rows and drop tombstoned colbert candidates; the
+        delta's candidates are scored at the coordinator by device
+        stages the frozen plans lack: ``device_score:delta`` (rerank,
+        hybrid), ``device_score:approx:delta`` and
+        ``device_score:exact:delta`` (colbert)."""
         p = self.params
         S = self.n_shards
         offs = self.offsets
         shards = self.shards
+        state = self.live if live else None
         dr = shards[0].searcher.device_resident
         gather_kind = DEVICE if dr else HOST
         access = None if dr else CombinedAccessStats(
@@ -496,6 +678,18 @@ class ShardedRetriever(MultiStageRetriever):
                     q, q_valid, sr.centroids, sp.nprobe)
                 return cb.with_state(q=q, q_valid=q_valid,
                                      scores_c=scores_c, cids=cids)
+
+            def approx_delta(cb):
+                # the delta's candidates (its docs holding a probed
+                # centroid) and their approximate scores, from the probe
+                # the shards used
+                st = cb.state
+                d_cand = state.delta_candidate_matrix(
+                    st["cids"].cpu().numpy())
+                return cb.with_state(d_cand=d_cand,
+                                     d_approx=state.approx_scores(
+                                         st["scores_c"], st["q_valid"],
+                                         d_cand))
 
             def candidates(cb, i):
                 # the shard's candidates from its IVF slice, cut to the
@@ -535,21 +729,30 @@ class ShardedRetriever(MultiStageRetriever):
                 (c,) = HostCopy(c).wait()          # this launch's event
                 return {"cols": s["cols"], "exact": c}
 
+            approx_d = exact_d = ()
+            if live:
+                approx_d = (Stage("device_score:approx:delta", DEVICE,
+                                  approx_delta),)
+                exact_d = (Stage("device_score:exact:delta", DEVICE,
+                                 lambda cb: score_delta_state(
+                                     cb, state, "final_g", wait=True)),)
             return plan(
                 Stage("plaid_probe", DEVICE, probe),
                 Stage("plaid_probe:ivf", DEVICE, candidates, fanout=S),
                 Stage("host_gather:codes", gather_kind, gather_codes,
                       fanout=S, pooled=not dr),
                 Stage("device_score:approx", DEVICE, approx, fanout=S),
+                *approx_d,
                 Stage("merge_topk:approx", HOST,
-                      lambda cb: merge_approx_state(cb, offs, ndocs)),
+                      lambda cb: merge_approx_state(cb, offs, ndocs, state)),
                 Stage("host_gather:residuals", gather_kind,
                       gather("final_g"), fanout=S, pooled=not dr),
                 Stage("device_score:exact", DEVICE, exact, fanout=S),
+                *exact_d,
                 Stage("merge_topk", HOST, fuse_colbert_state))
 
         backend = self.splade_backend
-        s1_kind = HOST if backend == "host" else DEVICE
+        s1_kind = HOST if backend == "host" or live else DEVICE
 
         def splade_stage(cb):
             # the group's stage 1, writing the shard axis itself
@@ -560,7 +763,7 @@ class ShardedRetriever(MultiStageRetriever):
                 return cb.with_state(stage1_cached=cached)
             outs = self._shard_stage1(list(cb.term_ids),
                                       list(cb.term_weights), p.first_k,
-                                      backend)
+                                      backend, live)
             return cb.evolve(shard_states=tuple(
                 {"pids": pd, "scores": sc} for pd, sc in outs))
 
@@ -577,7 +780,7 @@ class ShardedRetriever(MultiStageRetriever):
                     pids_b, s_scores = cached
                     return cb.evolve(pids=pids_b[:, :cb.k],
                                      scores=s_scores[:, :cb.k])
-                cb = fuse_splade_state(cb, p.first_k)
+                cb = fuse_splade_state(cb, p.first_k, state)
                 self._stage1_group_store(cb)
                 return cb
 
@@ -589,7 +792,7 @@ class ShardedRetriever(MultiStageRetriever):
             cached = cb.state.get("stage1_cached")
             if cached is not None:
                 return stage1_state_from_rows(cb, *cached)
-            cb = merge_stage1_state(cb, p.first_k)
+            cb = merge_stage1_state(cb, p.first_k, state)
             self._stage1_group_store(cb)
             return cb
 
@@ -600,6 +803,11 @@ class ShardedRetriever(MultiStageRetriever):
             c = _exact_scores(shards[i].searcher, cb.state, s)
             return {"cols": s["cols"], "c": HostCopy(c)}
 
+        # inside the open window: the fuse waits for its copy too
+        delta = (Stage("device_score:delta", DEVICE,
+                       lambda cb: score_delta_state(cb, state, "pids_b",
+                                                    wait=False)),
+                 ) if live else ()
         return plan(
             stage1,
             Stage("merge_topk:stage1", HOST, merge_stage1),
@@ -607,6 +815,7 @@ class ShardedRetriever(MultiStageRetriever):
                   fanout=S, pooled=not dr),
             Stage("device_score:maxsim", DEVICE, score, fanout=S,
                   opens_async=True),
+            *delta,
             Stage("fuse_topk", DEVICE,
                   lambda cb: fuse_scatter_rerank(cb, method, p.normalizer,
                                                  self.device),

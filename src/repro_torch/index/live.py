@@ -257,6 +257,11 @@ class LiveIndexState:
         t = self.tombstone_array()
         return t[t < self.base_n]
 
+    def local_tombstones(self, lo: int, hi: int) -> np.ndarray:
+        """Tombstoned pids within [lo, hi), shifted to shard-local."""
+        t = self.tombstone_array()
+        return t[(t >= lo) & (t < hi)] - lo
+
     def is_tombstoned(self, gpids) -> np.ndarray:
         """Vectorised tombstone membership for a global pid array."""
         return np.isin(np.asarray(gpids), self.tombstone_array())
@@ -339,6 +344,16 @@ class LiveIndexState:
             if excl.size:
                 uniq = uniq[~np.isin(uniq, excl)]
             out.append(uniq + self.base_n)
+        return out
+
+    def delta_candidate_matrix(self, cids_np) -> np.ndarray:
+        """:meth:`delta_candidates` as one (B, W) int64 matrix, -1 padded
+        (W the longest list's length, at least 1)."""
+        lists = self.delta_candidates(cids_np)
+        out = np.full((len(lists), max(1, max(map(len, lists), default=0))),
+                      -1, np.int64)
+        for b, arr in enumerate(lists):
+            out[b, :len(arr)] = arr
         return out
 
     def _gather_delta(self, pids_mat, with_packed: bool):

@@ -43,6 +43,7 @@ SIGNATURES = {
 }
 
 # most dynamic shared memory one block may use on Hopper
+# (csrc/score_tile.cuh's rt::kMaxSmemBytes)
 MAX_SMEM_BYTES = 232_448
 
 _lock = threading.Lock()

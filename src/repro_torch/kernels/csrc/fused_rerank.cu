@@ -86,7 +86,7 @@ extern "C" int fused_rerank_launch(
   const size_t smem = (size_t)C * sizeof(float);
   err = cudaFuncSetAttribute(select_topk_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+                             rt::kMaxSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   select_topk_kernel<<<B, kSelectThreads, smem, s>>>(
       sc, C, kk, static_cast<float*>(out_s), static_cast<int32_t*>(out_i));

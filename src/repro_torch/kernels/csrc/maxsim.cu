@@ -659,7 +659,7 @@ extern "C" int maxsim_launch(const void* q, const void* docs,
   const size_t smem = smem_bytes(Lq, d, s);
   cudaError_t err = cudaFuncSetAttribute(
       maxsim_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      rt::kMaxSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap docs_map, chunk_map;
   err = encode(&docs_map, docs, d, (long)B * C * Ld, kGroup);

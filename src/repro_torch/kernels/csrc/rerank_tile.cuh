@@ -411,7 +411,7 @@ inline cudaError_t launch_scores(const TileArgs& a, const uint8_t* cmask,
   const size_t smem = tile_bytes(a.Lq, a.d, a.nbits, t);
   cudaError_t err = cudaFuncSetAttribute(
       score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kMaxSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.C + t.G - 1) / t.G, B);
   score_kernel<<<grid, t.W * 32, smem, stream>>>(a, cmask, t.G, t.P, out);

@@ -21,6 +21,16 @@ constexpr float kNeg = -1e30f;       // masked-token sentinel (NEG)
 constexpr int kMaxLqPerLane = 4;     // query tokens per lane: Lq <= 128
 constexpr int kMaxBuckets = 16;      // 2^nbits for nbits <= 4
 
+// Most dynamic shared memory one block may use on Hopper (_build.py's
+// MAX_SMEM_BYTES; the wrappers refuse a launch that needs more). A
+// launcher sets its kernel's cudaFuncAttributeMaxDynamicSharedMemorySize
+// to this constant, never to its own launch's size: the attribute
+// belongs to the kernel on a device and every host thread shares it, so
+// a thread that lowered it between another thread's set and that
+// thread's launch would fail that launch. The attribute only permits;
+// it changes nothing a launch computes or the shared memory it uses.
+constexpr int kMaxSmemBytes = 232448;
+
 // Query rows in shared memory are d + 4 floats apart: float4 rows stay
 // 16-byte aligned, and the 8 query tokens a quarter-warp of the rerank
 // tile reads fall in distinct banks.

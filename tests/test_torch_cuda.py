@@ -201,6 +201,47 @@ def test_maxsim_takes_every_shape_the_per_warp_kernel_took(cuda):
                     <= _build.MAX_SMEM_BYTES, (Lq, d, B, C)
 
 
+def test_concurrent_launches_at_several_sizes(cuda):
+    """Host threads launching decompress_maxsim back to back at batch
+    sizes whose tiles take different shared memory (B·C = 2,000, 2,200,
+    4,400 give groups of 1, 2 and 4 candidates a block) all launch, and
+    each answer is the single-threaded launch's bit for bit. A
+    shared-memory attribute set to each launch's own size lets one
+    thread lower it under another's launch (CUDA error 701)."""
+    cases = [_case(40 + i, B, 200, 24, 4, 4096, 128, 32)
+             for i, B in enumerate((10, 11, 22))]
+    cases = [tuple(t.to(cuda) for t in c) for c in cases]
+
+    def launch(c):
+        q, packed, cids, valid, _, cent, bw, qv = c
+        return decompress_maxsim_scores_batch(q, packed, cids, valid, cent,
+                                              bw, nbits=4, q_valid=qv)
+
+    want = [launch(c).cpu() for c in cases]
+    errors, start = [], threading.Barrier(6)
+
+    def worker(i):
+        try:
+            start.wait(timeout=TIMEOUT)
+            # no sync between launches: every thread's attribute set and
+            # launch interleave with the others'
+            got = [(j, launch(cases[j])) for n in range(300)
+                   for j in [(i + n) % len(cases)]]
+            for j, out in got:
+                assert torch.equal(out.cpu().view(torch.int32),
+                                   want[j].view(torch.int32))
+        except Exception as e:   # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=TIMEOUT)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[0]
+
+
 def test_wrappers_reject_mixed_devices(cuda):
     q, packed, cids, valid, cmask, cent, bw, qv = _case(1, 1, 4, 2, 4, 8,
                                                         32, 4)
@@ -1079,6 +1120,72 @@ def test_live_trace_on_card(cuda, tmp_path):
             cpu = runs["cpu"][state][m]
             assert_topk_match(cpu[1], cpu[0], got[1], got[0],
                               what=f"{m} state {state}")
+
+
+def test_sharded_live_trace_on_card(cuda, tmp_path):
+    """A live group of 2 shards on the card, fed the canonical trace
+    (upsert held-out docs, tombstone base docs in both shards and a
+    delta doc), equals the card's unsharded live retriever fed the same
+    trace bit for bit, dirty and after a compaction, for the four
+    methods. A dirty group's batches launch decompress_maxsim (a shard
+    each, and the delta's at the coordinator) and no other kernel."""
+    from repro_torch.core.sharded import build_sharded_retriever
+    from repro_torch.index.sharding import load_group, split_index_tree
+    corpus = make_corpus(SynthCfg(n_docs=240, n_queries=16, vocab=512,
+                                  dim=32, n_topics=12, doc_maxlen=20,
+                                  query_maxlen=6, seed=3))
+    hold, deleted = 8, (5, 17, 100, 201, 234)
+    n = corpus["cfg"].n_docs - hold
+    base = tmp_path / "base"
+    build_colbert_index(base / "colbert", corpus["doc_embs"][:n],
+                        corpus["doc_lens"][:n], nbits=4, n_centroids=64,
+                        kmeans_iters=4, device="cpu")
+    build_splade_index(corpus["doc_term_ids"][:n],
+                       corpus["doc_term_weights"][:n], corpus["cfg"].vocab,
+                       n).save(base / "splade")
+    plaid = PlaidParams(nprobe=4, candidate_cap=4096, ndocs=128, k=10)
+    ms = MultiStageParams(first_k=64, k=10, splade_backend="device")
+    q = dict(q_embs=list(corpus["q_embs"]),
+             term_ids=list(corpus["q_term_ids"]),
+             term_weights=list(corpus["q_term_weights"]))
+    shutil.copytree(base, tmp_path / "one")
+    one = MultiStageRetriever(
+        SpladeIndex.load(tmp_path / "one" / "splade"),
+        PLAIDSearcher(ColBERTIndex(tmp_path / "one" / "colbert"), plaid,
+                      device=cuda), ms, device=cuda)
+    dirs, bounds = load_group(split_index_tree(base, 2,
+                                               group_dir=tmp_path / "two"))
+    two = build_sharded_retriever(dirs, bounds, plaid_params=plaid,
+                                  multistage_params=ms, device=cuda)
+    answers = {}
+    for name, retr in (("one", one), ("two", two)):
+        retr.enable_live()
+        for j in range(n, corpus["cfg"].n_docs):
+            assert retr.live_upsert(
+                corpus["doc_embs"][j], corpus["doc_term_ids"][j],
+                corpus["doc_term_weights"][j], corpus["doc_lens"][j]) == j
+        for g in deleted:
+            assert retr.live_delete(g)
+        for state in ("dirty", "compacted"):
+            if state == "compacted":
+                assert retr.compact_live()["compacted"] == hold
+            for m in METHODS:
+                before = _launch_counts()
+                answers[name, state, m] = retr.search_batch(m, **q, k=10)
+                after = _launch_counts()
+                if name == "two":
+                    assert after[0] == before[0] and after[2] == before[2]
+                    dms = after[1] - before[1]
+                    assert dms == 0 if m == "splade" else dms in (2, 3), m
+    assert [sh.live.tombstones.tolist() for sh in two.shards] == \
+        [[5, 17, 100], [201 - 116, 234 - 116]]
+    for state in ("dirty", "compacted"):
+        for m in METHODS:
+            want, got = answers["one", state, m], answers["two", state, m]
+            np.testing.assert_array_equal(got[0], want[0],
+                                          err_msg=f"{m} {state}")
+            np.testing.assert_array_equal(got[1].view(np.uint32),
+                                          want[1].view(np.uint32))
 
 
 def test_launcher_on_card(cuda, index_dir):

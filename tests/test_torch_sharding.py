@@ -37,8 +37,7 @@ from repro.serving.engine import ServeEngine as JEngine
 from repro_torch.core.multistage import (METHODS, MultiStageParams,
                                          MultiStageRetriever)
 from repro_torch.core.plaid import PLAIDSearcher, PlaidParams
-from repro_torch.core.sharded import (LIVE_NOT_PORTED, CombinedAccessStats,
-                                      ShardedRetriever,
+from repro_torch.core.sharded import (CombinedAccessStats, ShardedRetriever,
                                       build_sharded_retriever, compact_owned,
                                       scatter_scores)
 from repro_torch.index.builder import ColBERTIndex
@@ -727,23 +726,3 @@ def test_a_failing_fanout_fails_its_own_batch_only(groups):
         assert futs[2].result(timeout=30).pids.tolist() == [[8, 9, 12]]
     finally:
         px.stop()
-
-
-# ---------------------------------------------------------------------------
-# the live index of a group (ROADMAP item 3a-ii)
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("n_shards", [1, 2])
-@pytest.mark.parametrize("op", ["enable_live", "live_upsert", "live_delete",
-                                "compact_live"])
-def test_live_methods_raise_and_name_3a_ii(base_dir, groups, small_corpus,
-                                           op, n_shards):
-    retr = (groups[n_shards] if n_shards > 1 else ShardedRetriever(
-        [_unsharded(base_dir)], [0, small_corpus["cfg"].n_docs]))
-    args = {"live_upsert": (small_corpus["doc_embs"][0], [1], [0.5]),
-            "live_delete": (3,)}.get(op, ())
-    with pytest.raises(NotImplementedError, match="3a-ii"):
-        getattr(retr, op)(*args)
-    assert "ROADMAP item 3a-ii" in LIVE_NOT_PORTED
-    assert retr.live is None and retr.live_stats() is None
-    assert all(sh.live is None for sh in retr.shards)
