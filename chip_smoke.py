@@ -335,6 +335,22 @@ Phases, in order; any failure raises and the script exits non-zero:
              forced before the read); the one-shard group then compacts
              under the readers; each compaction's steps. The figures go
              on a ``sharded_live`` line;
+4k. transport — the socket half of the shard transport
+             (``repro_torch.serving.transport``; host code, no kernel).
+             What shard 0's process worker of phase 4i's 4-shard group
+             would send for one served batch of 32, in the JAX worker's
+             message shapes: its stage-1 pids and scores (rerank, device
+             stage 1), the ``score_tokens`` request (its residual
+             selection, the batch's query embeddings and mask), colbert's
+             candidates and approximate scores, colbert's exact scores.
+             With every codec the host has (``HAVE_MSGPACK`` printed):
+             each message 20 times through a pair of ``StreamChannel``
+             over a socketpair with a reader thread, 64 frames back to
+             back in FIFO order, one frame of 64 MiB (the JAX client's
+             arena size) in more than one ``sendmsg`` call; every array
+             bit for bit, ``bytes_copied`` equal to the bytes of the
+             arrays of 64 bytes or more. ms a message, MB/s and the
+             counters go on a ``transport`` line;
 5. time    — time each kernel with CUDA events at the serve shapes, and
              each at B=1, in an eager loop (the rerank tail's two
              kernels, MaxSim, the SPLADE kernel's two entry points and
@@ -379,16 +395,19 @@ The last line of standard output is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
 import os
 import pathlib
+import queue
 import re
 import select
 import shutil
 import signal
 import socket
+import struct
 import subprocess
 import sys
 import tempfile
@@ -4797,6 +4816,308 @@ def sharded_live_phase(rng, s: Shapes, path: pathlib.Path,
 
 
 # ---------------------------------------------------------------------------
+# phase 4k: the shard transport
+# ---------------------------------------------------------------------------
+
+TRANSPORT_REPS = 20       # round trips timed per message kind and codec
+TRANSPORT_BURST = 64      # frames sent back to back before any is read
+# one frame of the JAX client's shared-memory arena size
+# (src/repro/serving/transport/client.py:50, DEFAULT_ARENA_BYTES)
+TRANSPORT_BIG = 64 << 20
+TRANSPORT_WAIT = 120      # seconds: the bound on every send and receive
+
+
+class CountingSocket:
+    """A stream socket whose ``sendmsg`` calls are counted: a frame that
+    took more than one call went out in parts (partial writes)."""
+
+    def __init__(self, sock: socket.socket):
+        self.sock = sock
+        self.sendmsg_calls = 0
+
+    def sendmsg(self, bufs):
+        self.sendmsg_calls += 1
+        return self.sock.sendmsg(bufs)
+
+    def fileno(self) -> int:
+        return self.sock.fileno()
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+class Receiver:
+    """A reader thread: pumps ``channel`` and queues each decoded message
+    with the ``perf_counter`` instant it was decoded; a failure of the
+    channel is queued too and raised by :meth:`get`."""
+
+    def __init__(self, channel):
+        self.channel = channel
+        self.got = queue.Queue()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self.run, name="transport-rx",
+                                       daemon=True)
+        self.thread.start()
+
+    def run(self) -> None:
+        try:
+            while not self.stop.is_set():
+                msg = self.channel.pump(0.2)
+                if msg is not None:
+                    self.got.put((time.perf_counter(), msg))
+        except BaseException as e:       # handed to the caller of get()
+            self.got.put((None, e))
+
+    def get(self) -> tuple:
+        t, msg = self.got.get(timeout=TRANSPORT_WAIT)
+        if t is None:
+            raise msg
+        return t, msg
+
+    def close(self) -> None:
+        self.stop.set()
+        self.thread.join(TRANSPORT_WAIT)
+        if self.thread.is_alive():
+            raise RuntimeError("transport: the reader thread did not stop")
+
+
+@contextlib.contextmanager
+def transport_codec(name: str):
+    """Encode with ``name`` (``msgpack`` or ``fallback``) while in use:
+    the port's codec takes msgpack whenever the host has it, so on such
+    a host the fallback is held by hiding msgpack from the encoder."""
+    from repro_torch.serving.transport import codec
+    saved = codec.HAVE_MSGPACK
+    codec.HAVE_MSGPACK = name == "msgpack"
+    try:
+        yield
+    finally:
+        codec.HAVE_MSGPACK = saved
+
+
+def host_codecs() -> tuple:
+    from repro_torch.serving.transport import HAVE_MSGPACK
+    return ("msgpack", "fallback") if HAVE_MSGPACK else ("fallback",)
+
+
+def same_message(sent, got, what: str) -> None:
+    """``got`` is ``sent`` as it crossed: the same dict keys and list
+    lengths, every array of the same dtype, shape and bytes (and
+    writable: a copy of its own, not a view of the receive buffer),
+    every float of the same bits, every other value equal."""
+    if isinstance(sent, np.ndarray):
+        if not (isinstance(got, np.ndarray) and got.dtype == sent.dtype
+                and got.shape == sent.shape
+                and got.tobytes() == sent.tobytes()
+                and got.flags.writeable):
+            raise AssertionError(f"transport: {what}: an array differs")
+    elif isinstance(sent, dict):
+        if not isinstance(got, dict) or list(got) != list(sent):
+            raise AssertionError(f"transport: {what}: keys differ")
+        for key in sent:
+            same_message(sent[key], got[key], f"{what}.{key}")
+    elif isinstance(sent, (list, tuple)):
+        if not isinstance(got, list) or len(got) != len(sent):
+            raise AssertionError(f"transport: {what}: a list differs")
+        for i, (x, y) in enumerate(zip(sent, got)):
+            same_message(x, y, f"{what}[{i}]")
+    elif isinstance(sent, float):
+        if not (isinstance(got, float)
+                and struct.pack(">d", sent) == struct.pack(">d", got)):
+            raise AssertionError(f"transport: {what}: {sent!r} != {got!r}")
+    elif sent != got:
+        raise AssertionError(f"transport: {what}: {sent!r} != {got!r}")
+
+
+def message_arrays(msg) -> list:
+    """The message's arrays, in the order the codecs walk it."""
+    if isinstance(msg, np.ndarray):
+        return [msg]
+    if isinstance(msg, dict):
+        msg = list(msg.values())
+    if isinstance(msg, (list, tuple)):
+        return [a for x in msg for a in message_arrays(x)]
+    return []
+
+
+def segment_bytes(msg, min_bytes: int = 64) -> int:
+    """The bytes of the message's arrays of ``min_bytes`` or more: what a
+    ``SegmentSink`` takes out of the control message and copies."""
+    return sum(a.nbytes for a in message_arrays(msg)
+               if a.nbytes >= min_bytes)
+
+
+def transport_roundtrips(messages: dict, big_bytes: int = TRANSPORT_BIG,
+                         burst: int = TRANSPORT_BURST,
+                         reps: int = TRANSPORT_REPS, seed: int = 0) -> dict:
+    """Phase 4k's round trips, with every codec the host has: each of
+    ``messages`` (kind → message) ``reps`` times through a pair of the
+    port's ``StreamChannel`` over a socketpair, a reader thread decoding
+    on the far end (ms from the send's start to the decode's end: encode,
+    send, receive, decode); ``burst`` frames sent back to back and read
+    after, in FIFO order; one frame of ``big_bytes``. The sending socket
+    has a timeout (``TRANSPORT_WAIT``), so the kernel takes a frame
+    larger than the socket's buffer in parts: the big frame must take
+    more than one ``sendmsg`` call. Every message must arrive bit for
+    bit; the sender's ``bytes_copied`` must equal the bytes of the
+    arrays of 64 bytes or more that it sent, ``bytes_zero_copy`` 0, and
+    the receiver must have read every byte sent."""
+    from repro_torch.serving.transport import HAVE_MSGPACK, StreamChannel
+    rng = np.random.default_rng(seed)
+    big = {"ok": True, "result": {
+        "blob": rng.integers(0, 256, big_bytes, dtype=np.uint8)}}
+    kinds = list(messages)
+    out = {"have_msgpack": HAVE_MSGPACK, "codecs": {}}
+    for name in host_codecs():
+        a, b = socket.socketpair()
+        a.settimeout(TRANSPORT_WAIT)
+        counting = CountingSocket(a)
+        tx, rx = StreamChannel(counting), StreamChannel(b)
+        reader = Receiver(rx)
+        fig = {"messages": {}}
+        tensor = 0
+        try:
+            with transport_codec(name):
+                for kind, msg in messages.items():
+                    ms = []
+                    for _ in range(reps):
+                        t0 = time.perf_counter()
+                        frame = tx.send(msg)
+                        t1, got = reader.get()
+                        ms.append((t1 - t0) * 1e3)
+                        same_message(msg, got, f"{name} {kind}")
+                        tensor += segment_bytes(msg)
+                    fig["messages"][kind] = {
+                        "ms_median": float(np.median(ms)), "ms_min": min(ms),
+                        "ms_max": max(ms), "frame_bytes": frame,
+                        "tensor_bytes": segment_bytes(msg, 0)}
+                sent = [{"seq": i, **messages[kinds[i % len(kinds)]]}
+                        for i in range(burst)]
+                t0 = time.perf_counter()
+                for msg in sent:
+                    tx.send(msg)
+                    tensor += segment_bytes(msg)
+                got = [reader.get() for _ in range(burst)]
+                seqs = [g["seq"] for _, g in got]
+                if seqs != list(range(burst)):
+                    raise AssertionError(f"transport: {name} burst out of "
+                                         f"order: {seqs}")
+                for msg, (_, g) in zip(sent, got):
+                    same_message(msg, g, f"{name} burst {msg['seq']}")
+                fig["burst"] = {"frames": burst, "fifo": True,
+                                "ms": (got[-1][0] - t0) * 1e3}
+                calls = counting.sendmsg_calls
+                t0 = time.perf_counter()
+                frame = tx.send(big)
+                t1, g = reader.get()
+                calls = counting.sendmsg_calls - calls
+                same_message(big, g, f"{name} big frame")
+                del g
+                tensor += segment_bytes(big)
+                if calls < 2:
+                    raise AssertionError(f"transport: {name} big frame went "
+                                         f"out in {calls} sendmsg call")
+                fig["big"] = {"bytes": big_bytes, "frame_bytes": frame,
+                              "ms": (t1 - t0) * 1e3,
+                              "mb_per_s": big_bytes / 1e6 / (t1 - t0),
+                              "sendmsg_calls": calls}
+        finally:
+            reader.close()
+            tx.close()
+            rx.close()
+        fig["sender"], received = tx.stats(), rx.stats()
+        fig["tensor_bytes_64_or_more"] = tensor
+        if (fig["sender"]["bytes_copied"] != tensor
+                or fig["sender"]["bytes_zero_copy"] != 0
+                or received["bytes_recv"] != fig["sender"]["bytes_sent"]):
+            raise AssertionError(f"transport: {name} counters "
+                                 f"{fig['sender']}, receiver {received}, "
+                                 f"tensor bytes {tensor}")
+        out["codecs"][name] = fig
+        log(f"transport ({name}): "
+            + ", ".join(f"{k} {v['ms_median']:.3f} ms"
+                        for k, v in fig["messages"].items())
+            + f"; burst of {burst} in {fig['burst']['ms']:.1f} ms; "
+            f"{big_bytes >> 20} MiB in {fig['big']['ms']:.1f} ms "
+            f"({fig['big']['mb_per_s']:.0f} MB/s, "
+            f"{fig['big']['sendmsg_calls']} sendmsg calls)")
+    return out
+
+
+def stage_states(retr, method: str, **inputs) -> dict:
+    """One batch through ``retr``'s plan of ``method``, stage by stage:
+    stage name → the batch after that stage."""
+    cb = retr.build_batch(method, **inputs)
+    plan = retr.compile_plan(method)
+    out = {}
+    for stage in plan.stages:
+        cb = plan.run_stage(stage, cb)
+        out[stage.name] = cb
+    return out
+
+
+def transport_messages(rng, s: Shapes, path: pathlib.Path,
+                       topics: np.ndarray, device) -> dict:
+    """What shard 0's process worker of phase 4i's 4-shard group (phase
+    3's index split anew: the same bytes) would send for one served
+    batch of ``s.B`` requests, in the JAX worker's message shapes
+    (src/repro/serving/worker.py:121-170, replies wrapped as
+    ``{"ok": True, "result": ...}``): its stage-1 ``pids`` and
+    ``scores`` (rerank, device stage 1), the ``score_tokens`` request
+    the coordinator sends it (its residual selection and the batch's
+    query embeddings and mask), colbert's candidates and approximate
+    scores, and colbert's exact scores."""
+    from repro_torch.index.sharding import load_group, split_index_tree
+    reqs = make_requests(rng, s, topics, s.B)
+    q_colbert = [r.q_emb for r in colbert_requests(rng, s, s.B)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_transport_") as tmp:
+        group = split_index_tree(path, 4,
+                                 group_dir=pathlib.Path(tmp) / "S4")
+        retr = shard_retriever(path, {4: load_group(group)}, 4, device,
+                               plaid_params(s))
+        retr.set_splade_backend("device")
+        rerank = stage_states(retr, "rerank",
+                              q_embs=[r.q_emb for r in reqs],
+                              term_ids=[r.term_ids for r in reqs],
+                              term_weights=[r.term_weights for r in reqs])
+        colbert = stage_states(retr, "colbert", q_embs=q_colbert)
+        del retr
+    stage1 = rerank["splade_stage1"].shard_states[0]
+    merged = rerank["merge_topk:stage1"].state
+    approx = colbert["device_score:approx"].shard_states[0]
+
+    def reply(**result):
+        return {"ok": True, "result": result}
+
+    return {
+        "splade": reply(pids=stage1["pids"], scores=stage1["scores"]),
+        "score_tokens": {"op": "score_tokens", "payload": {
+            "sel": rerank["host_gather:residuals"].shard_states[0]["sel"],
+            "q": merged["q"], "q_valid": merged["q_valid"]}},
+        "colbert_candidates": reply(
+            cand=approx["cand_np"], approx=approx["approx_np"],
+            n_real=(approx["cand_np"] >= 0).sum(axis=1)),
+        "colbert_exact": reply(
+            scores=colbert["device_score:exact"].shard_states[0]["exact"]),
+    }
+
+
+def transport_phase(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
+                    device) -> dict:
+    """Phase 4k (see the module docstring). → the ``transport`` line's
+    figures."""
+    from repro_torch.serving.transport import HAVE_MSGPACK
+    log(f"transport: HAVE_MSGPACK {HAVE_MSGPACK}, codecs {host_codecs()}")
+    messages = transport_messages(rng, s, path, topics, device)
+    out = transport_roundtrips(messages)
+    out["shapes"] = {kind: {k: [str(v.dtype), list(v.shape)]
+                            for k, v in (msg.get("result")
+                                         or msg["payload"]).items()}
+                     for kind, msg in messages.items()}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3b: the index build on the card
 # ---------------------------------------------------------------------------
 
@@ -5814,6 +6135,10 @@ def main(argv=None) -> int:
         del live_replay
         log(f"phase 4j sharded live: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+        transport = transport_phase(sub_rng(args.seed, "transport"), s, path,
+                                    topics, device)
+        log(f"phase 4k transport: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         times = time_kernels(rng, s, device, peaks, path, topics, args.seed)
         ctimes = time_colbert(sub_rng(args.seed, "colbert timing"), s,
                               device, peaks, path)
@@ -5878,6 +6203,8 @@ def main(argv=None) -> int:
     print(json.dumps({"phase": "sharded", **sharded, "card": name,
                       "power_limit": limit}), flush=True)
     print(json.dumps({"phase": "sharded_live", **sharded_live, "card": name,
+                      "power_limit": limit}), flush=True)
+    print(json.dumps({"phase": "transport", **transport, "card": name,
                       "power_limit": limit}), flush=True)
     log(f"chip_smoke wall, build included: "
         f"{time.perf_counter() - t_all:.1f} s")
