@@ -351,6 +351,31 @@ Phases, in order; any failure raises and the script exits non-zero:
              bit for bit, ``bytes_copied`` equal to the bytes of the
              arrays of 64 bytes or more. ms a message, MB/s and the
              counters go on a ``transport`` line;
+4l. workers — the shard worker processes (``repro_torch.serving.worker``
+             behind ``ShardWorkerClient``; host code, no kernel of their
+             own). Phase 3's index split anew into phase 4i's 4 shards;
+             one worker a shard, the four spawned at once on the card
+             over the socket channel: each one's seconds from spawn to
+             its first ping, the card's bytes in use before and after,
+             ``nvidia-smi``'s list of compute processes one longer a
+             worker (in a container whose pids the GPU driver does not
+             see, every process shows as pid 1, so the list is
+             counted, not matched to pids), each worker's
+             ``health``, ``warm`` with the device stage 1. For one batch
+             of 32 of each method (``splade``, ``rerank``, ``hybrid``
+             with both stage-1 backends, and ``colbert``) phase 4i's
+             in-process group runs stage by stage and each shard's
+             inputs go to its worker, as single ops and as one ``multi``
+             frame: every reply bit for bit against the shard's
+             in-process state. Each op is then timed once more against
+             the worker's op body run in this process on the same
+             shard. SIGTERM on one worker 100 ms after a ``multi`` frame
+             of 32 ``colbert_exact`` ops went out whole (its reply bit for
+             bit, exit 0), SIGKILL on another with the frame pending
+             (``ShardWorkerDied``), ``terminate`` on the rest (exit 0);
+             the card's bytes released at each exit; at the end no
+             worker pid alive and the process list as before. The
+             figures go on a ``workers`` line;
 5. time    — time each kernel with CUDA events at the serve shapes, and
              each at B=1, in an eager loop (the rerank tail's two
              kernels, MaxSim, the SPLADE kernel's two entry points and
@@ -5118,6 +5143,373 @@ def transport_phase(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
+# phase 4l: the shard workers
+# ---------------------------------------------------------------------------
+
+WORKER_SHARDS = 4
+# (method, stage-1 backend) of the batches whose shard stages are sent
+WORKER_RUNS = (("splade", "host"), ("rerank", "host"), ("hybrid", "host"),
+               ("splade", "device"), ("rerank", "device"),
+               ("hybrid", "device"), ("colbert", None))
+WORKER_DRAIN = 32         # colbert_exact ops in the frame a SIGTERM drains
+WORKER_WAIT = 300         # seconds: the bound on every spawn, reply and exit
+
+
+def worker_ops(retr, method: str, backend, **inputs) -> list:
+    """What an in-process group's shard stages take and give for one
+    batch of ``method`` (stage 1 on ``backend``), as the ops a worker of
+    each shard would get: ``retr``'s plan runs stage by stage and each
+    shard's inputs become the JAX coordinator's payloads
+    (src/repro/core/sharded.py:1767-1929; for colbert, the group's probe
+    copied to the host). → per shard, a list of dicts: ``op``,
+    ``payload``, ``local`` (the same inputs as the in-process stage holds
+    them: the probe's device tensors for colbert), ``want`` (the reply
+    that the shard's state after its stage makes) and ``offset`` (what
+    the reply's ``pids`` take to be global, or None)."""
+    if backend is not None:
+        retr.set_splade_backend(backend)
+    n = len(inputs.get("q_embs") or inputs["term_ids"])
+    st = stage_states(retr, method, alphas=retr._alpha_array(None, n),
+                      **inputs)
+
+    def op(name, payload, want, local=None, offset=None):
+        return {"op": name, "payload": payload, "want": want,
+                "local": payload if local is None else local,
+                "offset": offset}
+
+    out = []
+    for i in range(retr.n_shards):
+        sel = st["host_gather:residuals"].shard_states[i]["sel"] \
+            if "host_gather:residuals" in st else None
+        if method == "colbert":
+            probe = st["plaid_probe"].state
+            cand = ("scores_c", "cids", "q_valid")
+            a = st["device_score:approx"].shard_states[i]
+            out.append([
+                op("colbert_candidates",
+                   {k: probe[k].cpu().numpy() for k in cand},
+                   {"cand": a["cand_np"], "approx": a["approx_np"],
+                    "n_real": (a["cand_np"] >= 0).sum(axis=1)},
+                   local={k: probe[k] for k in cand}),
+                op("colbert_exact",
+                   {"q": probe["q"].cpu().numpy(),
+                    "q_valid": probe["q_valid"].cpu().numpy(), "sel": sel},
+                   {"scores": st["device_score:exact"].shard_states[i]
+                    ["exact"]},
+                   local={"q": probe["q"], "q_valid": probe["q_valid"],
+                          "sel": sel})])
+            continue
+        s1 = st["splade_stage1"].shard_states[i]
+        ops = [op("splade", {"term_ids": list(inputs["term_ids"]),
+                             "term_weights": list(inputs["term_weights"]),
+                             "k": retr.params.first_k, "backend": backend},
+                  {"pids": s1["pids"], "scores": s1["scores"]},
+                  offset=int(retr.offsets[i]))]
+        if method != "splade":
+            merged = st["merge_topk:stage1"].state
+            (c,) = st["device_score:maxsim"].shard_states[i]["c"].wait()
+            ops.append(op("score_tokens", {"q": merged["q"],
+                                           "q_valid": merged["q_valid"],
+                                           "sel": sel}, {"scores": c}))
+        out.append(ops)
+    return out
+
+
+def hold_worker_reply(what: str, got: dict, want: dict, offset) -> None:
+    """``got`` (a worker's reply) is ``want`` bit for bit: the same keys
+    in order and every array of the same dtype, shape and bytes; a
+    shard-local ``pids`` is made global with ``offset`` first, as the
+    coordinator does."""
+    if offset is not None:
+        got = dict(got, pids=np.where(got["pids"] >= 0,
+                                      got["pids"] + offset, -1))
+    if list(got) != list(want):
+        raise AssertionError(f"workers: {what}: keys {list(got)} != "
+                             f"{list(want)}")
+    for key, w in want.items():
+        g = got[key]
+        if not (isinstance(g, np.ndarray) and g.dtype == w.dtype
+                and g.shape == w.shape and g.tobytes() == w.tobytes()):
+            raise AssertionError(f"workers: {what}: {key} differs")
+
+
+def worker_parity(clients, retr, batches: dict) -> dict:
+    """Phase 4l's parity: for each of ``WORKER_RUNS`` (``batches``:
+    method → its inputs), every shard's stage inputs sent to that
+    shard's worker (``clients``, in shard order) once as single ops and
+    once as one ``multi`` frame, every reply held bit for bit to the
+    in-process group's (``retr``) shard state. Each op is then sent once
+    more and timed (ms a round trip, request and reply
+    bytes) beside the worker's own op body run in this process on the
+    group's shard with the stage's own inputs (``serving.worker._handle``
+    on ``local``: the in-process stage's wall; its reply held too). →
+    {run: {op: figures in shard order}}."""
+    from repro_torch.serving.worker import _handle, _WorkerState
+    out = {}
+    for method, backend in WORKER_RUNS:
+        run = method if backend is None else f"{method}/{backend}"
+        ops = worker_ops(retr, method, backend, **batches[method])
+        for i, cli in enumerate(clients):
+            for o in ops[i]:
+                hold_worker_reply(f"{run} {o['op']} shard {i}",
+                                  cli.call(o["op"], o["payload"],
+                                           timeout=WORKER_WAIT),
+                                  o["want"], o["offset"])
+            got = cli.call("multi", {"ops": [
+                {"op": o["op"], "payload": o["payload"]} for o in ops[i]]},
+                timeout=WORKER_WAIT)["replies"]
+            if len(got) != len(ops[i]) or not all(r["ok"] for r in got):
+                raise AssertionError(f"workers: {run} multi shard {i}: "
+                                     f"{[r.get('error') for r in got]}")
+            for r, o in zip(got, ops[i]):
+                hold_worker_reply(f"{run} multi {o['op']} shard {i}",
+                                  r["result"], o["want"], o["offset"])
+        figs = out[run] = {}
+        for i, cli in enumerate(clients):
+            state = _WorkerState(retr.shards[i], i)
+            for o in ops[i]:
+                sent, recv = cli.bytes_sent, cli.bytes_recv
+                t0 = time.perf_counter()
+                got = cli.call(o["op"], o["payload"], timeout=WORKER_WAIT)
+                worker_ms = (time.perf_counter() - t0) * 1e3
+                hold_worker_reply(f"{run} {o['op']} shard {i} timed", got,
+                                  o["want"], o["offset"])
+                t0 = time.perf_counter()
+                local = _handle(state, o["op"], o["local"])
+                local_ms = (time.perf_counter() - t0) * 1e3
+                hold_worker_reply(f"{run} {o['op']} shard {i} in process",
+                                  local, o["want"], o["offset"])
+                f = figs.setdefault(o["op"], {
+                    "worker_ms": [], "in_process_ms": [],
+                    "request_bytes": [], "reply_bytes": []})
+                f["worker_ms"].append(worker_ms)
+                f["in_process_ms"].append(local_ms)
+                f["request_bytes"].append(cli.bytes_sent - sent)
+                f["reply_bytes"].append(cli.bytes_recv - recv)
+        log(f"workers: {run}: " + ", ".join(
+            f"{op} {np.median(f['worker_ms']):.2f} ms a round trip "
+            f"against {np.median(f['in_process_ms']):.2f} in process, "
+            f"{max(f['request_bytes'])} B out"
+            for op, f in figs.items()))
+    return out
+
+
+def device_used(device) -> int:
+    """Bytes in use on the whole card (every process's), from
+    ``cudaMemGetInfo``."""
+    import torch
+    free, total = torch.cuda.mem_get_info(device)
+    return total - free
+
+
+def compute_apps() -> list:
+    """The card's compute processes as ``nvidia-smi`` lists them, one
+    line each. In a container whose pids the GPU driver does not see,
+    every process shows as pid 1 with the card's total memory, so a line
+    is matched to no pid: the count of lines is what says how many
+    processes hold a context."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return [line for line in out.stdout.splitlines() if line.strip()]
+
+
+def released_bytes(device, before: int, settle_s: float = 10.0) -> int:
+    """The device bytes released since ``before`` (``device_used``) once
+    the count stops falling: a reaped process's context is freed by the
+    driver a moment after the exit."""
+    last, t_end = before, time.monotonic() + settle_s
+    while time.monotonic() < t_end:
+        time.sleep(0.2)
+        now = device_used(device)
+        if now == last and now < before:
+            break
+        last = now
+    return before - last
+
+
+def spawn_workers(dirs, plaid: dict, ms: dict, device) -> tuple:
+    """One port worker a shard directory, all spawned at once on
+    ``device`` over the socket channel. → (the clients in shard order,
+    each one's seconds from spawn to its first ping). A failed spawn
+    terminates every worker and raises."""
+    from repro_torch.serving.transport import ShardWorkerClient
+    clients = [ShardWorkerClient(i, d, plaid_params=plaid, ms_params=ms,
+                                 transport="socket", device=str(device),
+                                 spawn_timeout_s=WORKER_WAIT,
+                                 call_timeout_s=WORKER_WAIT)
+               for i, d in enumerate(dirs)]
+    seconds = [None] * len(clients)
+    failed = []
+
+    def start(i):
+        t0 = time.perf_counter()
+        try:
+            clients[i].spawn()
+        except BaseException as e:     # re-raised below, after the reap
+            failed.append(e)
+            return
+        seconds[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=start, args=(i,), name=f"spawn-{i}")
+               for i in range(len(clients))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(WORKER_WAIT + 60)
+    if failed or any(t.is_alive() for t in threads):
+        for cli in clients:
+            cli.terminate()
+        raise RuntimeError(f"workers: spawn failed: {failed}")
+    return clients, seconds
+
+
+def worker_lifecycle(clients, drain_op: dict, device) -> dict:
+    """Phase 4l's lifecycle on four workers: SIGTERM the last one 100 ms
+    after a ``multi`` frame of ``WORKER_DRAIN`` copies of ``drain_op``
+    (one of ``worker_ops``'s, for the last shard) has been sent whole
+    (its reply arrives bit for bit, the worker exits 0); SIGKILL the one
+    before it with the same frame pending (``ShardWorkerDied`` arrives);
+    ``terminate`` the rest (exit 0). After each exit the device bytes it
+    released. → the figures; the caller checks the process list."""
+    from repro_torch.serving.transport import ShardWorkerDied
+    op, want = drain_op["op"], drain_op["want"]
+    frame = {"ops": [{"op": op, "payload": drain_op["payload"]}]
+             * WORKER_DRAIN}
+    out = {"released_bytes": {}}
+    pids = [c.pid for c in clients]
+    term, kill = clients[-1], clients[-2]
+
+    used = device_used(device)
+    rep = term.call_async("multi", frame)
+    t0 = time.perf_counter()
+    time.sleep(0.1)
+    os.kill(term.pid, signal.SIGTERM)
+    got = term.wait(rep, timeout=WORKER_WAIT)["replies"]
+    reply_s = time.perf_counter() - t0
+    if len(got) != WORKER_DRAIN or not all(r["ok"] for r in got):
+        raise AssertionError("workers: the drained frame failed")
+    for j, r in enumerate(got):
+        hold_worker_reply(f"drain {op} {j}", r["result"], want, None)
+    code = term.proc.wait(timeout=WORKER_WAIT)
+    if code != 0:
+        raise AssertionError(f"workers: SIGTERM exit code {code}")
+    out["sigterm"] = {"exit_code": code, "reply_s": reply_s,
+                      "exit_s": time.perf_counter() - t0}
+    out["released_bytes"][term.shard_index] = released_bytes(device, used)
+    term.terminate()
+
+    used = device_used(device)
+    rep = kill.call_async("multi", frame)
+    t0 = time.perf_counter()
+    os.kill(kill.pid, signal.SIGKILL)
+    try:
+        kill.wait(rep, timeout=WORKER_WAIT)
+    except ShardWorkerDied as e:
+        died_ms = (time.perf_counter() - t0) * 1e3
+        why = str(e)
+    else:
+        raise AssertionError("workers: a SIGKILLed worker answered")
+    code = kill.terminate()
+    if code != -signal.SIGKILL or kill.alive():
+        raise AssertionError(f"workers: SIGKILL exit code {code}")
+    out["sigkill"] = {"exit_code": code, "died_ms": died_ms, "error": why}
+    out["released_bytes"][kill.shard_index] = released_bytes(device, used)
+
+    codes = {}
+    for cli in clients[:-2]:
+        used = device_used(device)
+        codes[cli.shard_index] = cli.terminate()
+        out["released_bytes"][cli.shard_index] = released_bytes(device, used)
+    if any(c != 0 for c in codes.values()):
+        raise AssertionError(f"workers: terminate exit codes {codes}")
+    out["terminate_exit_codes"] = codes
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            continue
+        raise AssertionError(f"workers: pid {pid} is still alive")
+    return out
+
+
+def workers_phase(rng, s: Shapes, path: pathlib.Path, topics: np.ndarray,
+                  device) -> dict:
+    """Phase 4l (see the module docstring). → the ``workers`` line's
+    figures."""
+    import torch
+    from repro_torch.index.sharding import load_group, split_index_tree
+    reqs = make_requests(rng, s, topics, s.B)
+    splade_in = dict(q_embs=[r.q_emb for r in reqs],
+                     term_ids=[r.term_ids for r in reqs],
+                     term_weights=[r.term_weights for r in reqs])
+    batches = {m: splade_in for m in ("splade", "rerank", "hybrid")}
+    batches["colbert"] = dict(
+        q_embs=[r.q_emb for r in colbert_requests(rng, s, s.B)])
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_workers_") as tmp:
+        dirs, bounds = load_group(split_index_tree(
+            path, WORKER_SHARDS, group_dir=pathlib.Path(tmp) / "S4"))
+        retr = shard_retriever(path, {WORKER_SHARDS: (dirs, bounds)},
+                               WORKER_SHARDS, device, plaid_params(s))
+        plaid = dataclasses.asdict(retr.shards[0].searcher.params)
+        ms = dataclasses.asdict(retr.params)
+        apps = len(compute_apps())
+        used = device_used(device)
+        t0 = time.perf_counter()
+        clients, seconds = spawn_workers(dirs, plaid, ms, device)
+        out["spawn"] = {"wall_s": time.perf_counter() - t0,
+                        "seconds": seconds}
+        try:
+            listed = len(compute_apps())
+            out["spawn"]["device_bytes"] = device_used(device) - used
+            out["spawn"]["compute_apps"] = {"before": apps, "up": listed}
+            if listed != apps + len(clients):
+                raise AssertionError(f"workers: nvidia-smi lists {listed} "
+                                     f"processes, {apps} before the spawn")
+            out["warm_ms"] = []
+            for c in clients:
+                t0 = time.perf_counter()
+                c.call("warm", {"backend": "device"}, timeout=WORKER_WAIT)
+                out["warm_ms"].append((time.perf_counter() - t0) * 1e3)
+            # nvidia-smi's lines name no pid here, so each worker also
+            # shows itself on the card: its own context and allocations
+            # (and on a CPU rehearsal neither)
+            out["health"] = [c.call("health", {}, timeout=WORKER_WAIT)
+                             for c in clients]
+            on_card = torch.device(device).type == "cuda"
+            for c, h in zip(clients, out["health"]):
+                if (h["pid"] != c.pid or h["device"] != str(device)
+                        or h["cuda_initialized"] != on_card
+                        or (h["device_allocated_bytes"] > 0) != on_card):
+                    raise AssertionError(f"workers: worker {c.shard_index} "
+                                         f"is not on the card: {h}")
+            t0 = time.perf_counter()
+            out["ops"] = worker_parity(clients, retr, batches)
+            out["parity_s"] = time.perf_counter() - t0
+            out["transport"] = [c.transport_stats() for c in clients]
+            exact = worker_ops(retr, "colbert", None,
+                               **batches["colbert"])[-1][1]
+            out["lifecycle"] = worker_lifecycle(clients, exact, device)
+        finally:
+            for c in clients:
+                c.terminate()
+        out["compute_apps_after"] = len(compute_apps())
+        if out["compute_apps_after"] != apps:
+            raise AssertionError(f"workers: nvidia-smi lists "
+                                 f"{out['compute_apps_after']} processes "
+                                 f"after the exits, {apps} before")
+        del retr
+    out["bounds"] = bounds.tolist()
+    log(f"workers: spawned in {out['spawn']['seconds']} s, "
+        f"{out['spawn']['device_bytes']} device bytes for "
+        f"{WORKER_SHARDS}; released at exit "
+        f"{out['lifecycle']['released_bytes']}; SIGKILL seen in "
+        f"{out['lifecycle']['sigkill']['died_ms']:.1f} ms")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3b: the index build on the card
 # ---------------------------------------------------------------------------
 
@@ -6139,6 +6531,10 @@ def main(argv=None) -> int:
                                     topics, device)
         log(f"phase 4k transport: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+        workers = workers_phase(sub_rng(args.seed, "workers"), s, path,
+                                topics, device)
+        log(f"phase 4l workers: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         times = time_kernels(rng, s, device, peaks, path, topics, args.seed)
         ctimes = time_colbert(sub_rng(args.seed, "colbert timing"), s,
                               device, peaks, path)
@@ -6205,6 +6601,8 @@ def main(argv=None) -> int:
     print(json.dumps({"phase": "sharded_live", **sharded_live, "card": name,
                       "power_limit": limit}), flush=True)
     print(json.dumps({"phase": "transport", **transport, "card": name,
+                      "power_limit": limit}), flush=True)
+    print(json.dumps({"phase": "workers", **workers, "card": name,
                       "power_limit": limit}), flush=True)
     log(f"chip_smoke wall, build included: "
         f"{time.perf_counter() - t_all:.1f} s")

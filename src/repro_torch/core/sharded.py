@@ -308,16 +308,74 @@ class CombinedAccessStats:
             part.reset()
 
 
-def _exact_scores(searcher, st, s):
-    """A shard's exact scores of its gathered candidates (``s``: sel,
-    g_codes, g_packed, g_valid) for the batch's queries (``st``: q,
-    q_valid): one decompress_maxsim launch on the shard's device, -inf
-    where the slot holds no candidate."""
+# ---------------------------------------------------------------------------
+# the per-shard stage bodies: one shard's retriever and the stage's
+# inputs in, what the fanout stage keeps in the shard's state out. The
+# in-process plans and a shard worker process
+# (``repro_torch.serving.worker``) call the same functions on the same
+# inputs, so a worker's reply is the in-process stage's, bit for bit.
+# ---------------------------------------------------------------------------
+
+def shard_gather(shard: MultiStageRetriever, sel) -> dict:
+    """A shard's residual gather of its own candidates ``sel`` (B, W)
+    shard-local pids, -1 pad (a host matrix; a tensor on the device for a
+    resident pool) → {sel, g_codes, g_packed, g_valid}."""
+    codes, packed, valid = shard.searcher.gather_tokens_batch(sel)
+    return {"sel": sel, "g_codes": codes, "g_packed": packed,
+            "g_valid": valid}
+
+
+def shard_exact_scores(shard: MultiStageRetriever, q, q_valid,
+                       s: dict) -> torch.Tensor:
+    """A shard's exact scores of its gathered candidates (``s``, from
+    :func:`shard_gather`) for the batch's queries ``q`` (B, Lq, d) and
+    ``q_valid`` (B, Lq): one decompress_maxsim launch on the shard's
+    device, -inf where the slot holds no candidate. Returns the device
+    tensor as soon as the kernel is launched."""
+    searcher = shard.searcher
     q, q_valid, codes, packed, valid, mask = searcher.to_device(
-        st["q"], st["q_valid"], s["g_codes"], s["g_packed"], s["g_valid"],
+        q, q_valid, s["g_codes"], s["g_packed"], s["g_valid"],
         s["sel"] >= 0)
     return searcher.exact_score_gathered(q, q_valid, codes, packed, valid,
                                          mask)
+
+
+def shard_candidates(shard: MultiStageRetriever, cids) -> dict:
+    """PLAID stage 2 on a shard's IVF slice for the group's probe
+    ``cids`` (B, Lq, nprobe), cut to the densest row's count of real
+    candidates (at least 1; stage 2 puts the -1 fill at the back), so
+    that the codes gather and the approximate stage run at the shard's
+    width → {cand (device), cand_np (host)}, both (B, W) shard-local."""
+    sr = shard.searcher
+    (cids,) = sr.to_device(cids)
+    cand = stage2_candidates_batch(sr.ivf_padded, cids,
+                                   sr.params.candidate_cap)
+    cand_np = cand.cpu().numpy()
+    w = max(int((cand_np >= 0).sum(axis=1).max()), 1)
+    return {"cand": cand[:, :w], "cand_np": cand_np[:, :w]}
+
+
+def shard_gather_codes(shard: MultiStageRetriever, s: dict) -> dict:
+    """The codes-only gather of a shard's candidates (``s``, from
+    :func:`shard_candidates`): ``s`` with codes and c_valid added."""
+    sr = shard.searcher
+    codes, valid = sr.gather_codes_batch(
+        s["cand"] if sr.device_resident else s["cand_np"])
+    return dict(s, codes=codes, c_valid=valid)
+
+
+def shard_approx(shard: MultiStageRetriever, scores_c, q_valid,
+                 s: dict) -> dict:
+    """PLAID stage 3 on a shard's candidates (``s``, from
+    :func:`shard_gather_codes`) for the group's probe scores ``scores_c``
+    (B, Lq, K): the raw approximate scores, -inf where no candidate is,
+    not a per-shard top-ndocs (the survivors are chosen over the whole
+    group) → {cand_np, approx_np}, host (B, W)."""
+    scores_c, q_valid, codes, valid = shard.searcher.to_device(
+        scores_c, q_valid, s["codes"], s["c_valid"])
+    a = stage3_approx_score_batch(scores_c, codes, valid, q_valid)
+    a = a.masked_fill(s["cand"] < 0, float("-inf"))
+    return {"cand_np": s["cand_np"], "approx_np": a.cpu().numpy()}
 
 
 class ShardedRetriever(MultiStageRetriever):
@@ -658,10 +716,7 @@ class ShardedRetriever(MultiStageRetriever):
             def fn(cb, i):
                 cols, sel = compact_owned(cb.state[pids_key], offs[i],
                                           offs[i + 1])
-                codes, packed, valid = shards[i].searcher.gather_tokens_batch(
-                    sel)
-                return {"cols": cols, "sel": sel, "g_codes": codes,
-                        "g_packed": packed, "g_valid": valid}
+                return dict(shard_gather(shards[i], sel), cols=cols)
             return fn
 
         if method == "colbert":
@@ -692,40 +747,19 @@ class ShardedRetriever(MultiStageRetriever):
                                          d_cand))
 
             def candidates(cb, i):
-                # the shard's candidates from its IVF slice, cut to the
-                # densest row's count (stage 2 puts the -1 fill at the
-                # back), so the codes gather and the approximate stage
-                # run at the shard's width
-                sr = shards[i].searcher
-                (cids,) = sr.to_device(cb.state["cids"])
-                cand = stage2_candidates_batch(sr.ivf_padded, cids,
-                                               sr.params.candidate_cap)
-                cand_np = cand.cpu().numpy()
-                w = max(int((cand_np >= 0).sum(axis=1).max()), 1)
-                return {"cand": cand[:, :w], "cand_np": cand_np[:, :w]}
+                return shard_candidates(shards[i], cb.state["cids"])
 
             def gather_codes(cb, i):
-                s = cb.shard_states[i]
-                codes, valid = shards[i].searcher.gather_codes_batch(
-                    s["cand"] if dr else s["cand_np"])
-                return dict(s, codes=codes, c_valid=valid)
+                return shard_gather_codes(shards[i], cb.shard_states[i])
 
             def approx(cb, i):
-                # raw approximate scores, not a per-shard top-ndocs: the
-                # survivors are chosen over the whole group
-                s = cb.shard_states[i]
-                sr = shards[i].searcher
-                scores_c, q_valid, codes, valid = sr.to_device(
-                    cb.state["scores_c"], cb.state["q_valid"], s["codes"],
-                    s["c_valid"])
-                a = stage3_approx_score_batch(scores_c, codes, valid,
-                                              q_valid)
-                a = a.masked_fill(s["cand"] < 0, float("-inf"))
-                return {"cand_np": s["cand_np"], "approx_np": a.cpu().numpy()}
+                return shard_approx(shards[i], cb.state["scores_c"],
+                                    cb.state["q_valid"], cb.shard_states[i])
 
             def exact(cb, i):
                 s = cb.shard_states[i]
-                c = _exact_scores(shards[i].searcher, cb.state, s)
+                c = shard_exact_scores(shards[i], cb.state["q"],
+                                       cb.state["q_valid"], s)
                 (c,) = HostCopy(c).wait()          # this launch's event
                 return {"cols": s["cols"], "exact": c}
 
@@ -800,7 +834,8 @@ class ShardedRetriever(MultiStageRetriever):
             # launch, and enqueue the copy of the scores to the host
             # behind an event; the fuse stage waits for that event
             s = cb.shard_states[i]
-            c = _exact_scores(shards[i].searcher, cb.state, s)
+            c = shard_exact_scores(shards[i], cb.state["q"],
+                                   cb.state["q_valid"], s)
             return {"cols": s["cols"], "c": HostCopy(c)}
 
         # inside the open window: the fuse waits for its copy too
@@ -822,6 +857,21 @@ class ShardedRetriever(MultiStageRetriever):
                   closes_async=True, device_dispatches=0))
 
 
+def load_shard(shard_dir, *, mode: str = "mmap", plaid_params=None,
+               multistage_params=None, device="cuda") -> MultiStageRetriever:
+    """One shard of a group written by ``split_index_tree``
+    (``shard_dir`` holding ``colbert/`` + ``splade/``) as a retriever on
+    ``device``: what :func:`build_sharded_retriever` loads a shard as,
+    and what a shard worker process serves."""
+    d = pathlib.Path(shard_dir)
+    searcher = PLAIDSearcher(ColBERTIndex(d / "colbert", mode=mode),
+                             plaid_params or PlaidParams(), device=device)
+    kw = {} if multistage_params is None else {"params": multistage_params}
+    return MultiStageRetriever(
+        SpladeIndex.load(d / "splade", mmap=(mode == "mmap")), searcher,
+        device=device, **kw)
+
+
 def build_sharded_retriever(shard_dirs, boundaries, *, mode: str = "mmap",
                             plaid_params=None, multistage_params=None,
                             devices: Optional[Sequence] = None,
@@ -830,15 +880,8 @@ def build_sharded_retriever(shard_dirs, boundaries, *, mode: str = "mmap",
     :class:`ShardedRetriever`. ``shard_dirs``: per-shard directories each
     holding ``colbert/`` + ``splade/``; ``devices``: one device per shard,
     else every shard on ``device`` (on one card every shard shares it)."""
-    shards = []
-    for i, d in enumerate(shard_dirs):
-        d = pathlib.Path(d)
-        dev = device if devices is None else devices[i]
-        searcher = PLAIDSearcher(ColBERTIndex(d / "colbert", mode=mode),
-                                 plaid_params or PlaidParams(), device=dev)
-        kw = {} if multistage_params is None \
-            else {"params": multistage_params}
-        shards.append(MultiStageRetriever(
-            SpladeIndex.load(d / "splade", mmap=(mode == "mmap")), searcher,
-            device=dev, **kw))
-    return ShardedRetriever(shards, boundaries)
+    return ShardedRetriever(
+        [load_shard(d, mode=mode, plaid_params=plaid_params,
+                    multistage_params=multistage_params,
+                    device=device if devices is None else devices[i])
+         for i, d in enumerate(shard_dirs)], boundaries)

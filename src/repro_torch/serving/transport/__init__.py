@@ -11,15 +11,20 @@
 * :mod:`~repro_torch.serving.transport.channel` —
   :class:`StreamChannel` (socketpair or TCP) on the shared
   :class:`_FramedChannel` machinery.
+* :mod:`~repro_torch.serving.transport.client` —
+  :class:`ShardWorkerClient`: spawns a shard worker process
+  (``repro_torch.serving.worker``) and pipelines its RPCs over a
+  :class:`StreamChannel`.
 
 Host code on numpy arrays; every byte on the wire is the JAX package's
 (``repro.serving.transport``), so processes of the two packages talk to
-each other. The shared-memory ring arena and its channel, the worker
-client and fault injection are not part of this package yet.
+each other. The shared-memory ring arena and its channel and fault
+injection are not part of this package yet.
 """
 
 from repro_torch.serving.transport.channel import (StreamChannel,
                                                    _FramedChannel)
+from repro_torch.serving.transport.client import ShardWorkerClient
 from repro_torch.serving.transport.codec import (HAVE_MSGPACK, decode,
                                                  decode_control, encode,
                                                  encode_control)
@@ -34,8 +39,8 @@ from repro_torch.serving.transport.framing import (SegmentSink,
                                                    send_msg, sendmsg_gather)
 
 __all__ = [
-    "ArenaDead", "DeadlineExceeded", "HAVE_MSGPACK",
-    "SegmentSink", "ShardUnavailable", "ShardWorkerDied",
+    "ArenaDead", "DeadlineExceeded", "HAVE_MSGPACK", "SegmentSink",
+    "ShardUnavailable", "ShardWorkerClient", "ShardWorkerDied",
     "ShardWorkerError", "StreamChannel", "_FramedChannel", "decode",
     "decode_control", "encode", "encode_control", "frame_buffers",
     "parse_payload", "recv_msg", "send_msg", "sendmsg_gather",

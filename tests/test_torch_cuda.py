@@ -1328,3 +1328,83 @@ def test_shard_group_pipelined_on_card(cuda, index_dir):
             np.testing.assert_array_equal(a.pids, b.pids)
             np.testing.assert_array_equal(a.scores.view(np.uint32),
                                           b.scores.view(np.uint32))
+
+
+def test_shard_worker_on_card_equals_in_process_shard(cuda, index_dir):
+    """A shard worker process on the card (the client's default
+    ``device="cuda"``) answers ``splade`` with the device stage 1,
+    ``score_tokens``, ``colbert_candidates`` and ``colbert_exact`` with
+    the bits of the in-process 2-shard group's shard 1 on the same
+    inputs: its stage 1 (every shard's top-k launched before any is
+    copied back) and the lifted stage functions. The kernel library is
+    built in this process before the spawn; the worker loads it."""
+    from repro_torch.core import sharded
+    from repro_torch.core.plaid import (pad_query_batch_host,
+                                        stage1_centroid_probe_batch)
+    from repro_torch.index.sharding import load_group, split_index_tree
+    from repro_torch.serving.transport import ShardWorkerClient
+    rng = np.random.default_rng(23)
+    B, d, first_k = 12, 64, 60
+    plaid = dict(nprobe=8, candidate_cap=4096, ndocs=64, k=30)
+    ms = dict(first_k=first_k, k=30, splade_backend="device")
+    dirs, bounds = load_group(split_index_tree(index_dir, 2))
+    group = sharded.build_sharded_retriever(
+        dirs, bounds, plaid_params=PlaidParams(**plaid),
+        multistage_params=MultiStageParams(**ms), device=cuda)
+    shard = group.shards[1]
+    term_ids = [rng.integers(0, 500, 8) for _ in range(B)]
+    term_weights = [rng.uniform(0.1, 2, 8).astype(np.float32)
+                    for _ in range(B)]
+    q, q_valid = pad_query_batch_host(
+        [rng.normal(size=(int(n), d)).astype(np.float32)
+         for n in rng.integers(3, 17, B)])
+    n_local = int(bounds[2] - bounds[1])
+    sel = np.where(rng.random((B, 24)) < 0.8,
+                   rng.integers(0, n_local, (B, 24)), -1)
+    qt, qvt = shard.searcher.to_device(q, q_valid)
+    scores_c, cids = stage1_centroid_probe_batch(
+        qt, qvt, shard.searcher.centroids, plaid["nprobe"])
+    pids, s1 = group._shard_stage1(term_ids, term_weights, first_k,
+                                   "device")[1]
+    want = {
+        "splade": {"pids": np.where(pids >= 0, pids - bounds[1], -1),
+                   "scores": s1},
+        "score_tokens": {"scores": HostCopy(sharded.shard_exact_scores(
+            shard, q, q_valid, sharded.shard_gather(shard, sel))).wait()[0]},
+    }
+    want["colbert_exact"] = want["score_tokens"]
+    a = sharded.shard_approx(
+        shard, scores_c, qvt, sharded.shard_gather_codes(
+            shard, sharded.shard_candidates(shard, cids)))
+    want["colbert_candidates"] = {
+        "cand": a["cand_np"], "approx": a["approx_np"],
+        "n_real": (a["cand_np"] >= 0).sum(axis=1)}
+    payloads = {
+        "splade": {"term_ids": term_ids, "term_weights": term_weights,
+                   "k": first_k, "backend": "device"},
+        "score_tokens": {"q": q, "q_valid": q_valid, "sel": sel},
+        "colbert_exact": {"q": q, "q_valid": q_valid, "sel": sel},
+        "colbert_candidates": {"scores_c": scores_c.cpu().numpy(),
+                               "cids": cids.cpu().numpy(),
+                               "q_valid": q_valid}}
+    _build.load()
+    cli = ShardWorkerClient(1, dirs[1], plaid_params=plaid, ms_params=ms,
+                            transport="socket", spawn_timeout_s=120,
+                            call_timeout_s=60)
+    try:
+        cli.spawn()
+        assert cli.call("warm", {"backend": "device"}) == {
+            "warmed": "device"}
+        # the worker's own view: a context of its own, bytes on the card
+        h = cli.call("health", {})
+        assert h["device"].startswith("cuda") and h["cuda_initialized"]
+        assert h["device_allocated_bytes"] > 0
+        for op, payload in payloads.items():
+            got = cli.call(op, payload)
+            assert list(got) == list(want[op]), op
+            for key, w in want[op].items():
+                g = got[key]
+                assert (g.dtype, g.shape) == (w.dtype, w.shape), (op, key)
+                assert g.tobytes() == w.tobytes(), (op, key)
+    finally:
+        assert cli.terminate() == 0

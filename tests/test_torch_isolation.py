@@ -78,3 +78,26 @@ def test_default_device_raises_without_cuda():
         "    else:\n"
         "        sys.exit('constructed on a host without CUDA')\n")
     assert res.returncode == 0, res.stderr + res.stdout
+
+
+def test_importing_the_worker_starts_nothing():
+    """The shard worker and its client load torch and the shard only when
+    run: importing them starts no thread, no process and no CUDA
+    context."""
+    res = _run(
+        "import os, sys, threading\n"
+        "import repro_torch.serving.worker\n"
+        "import repro_torch.serving.transport.client\n"
+        "kids = []\n"
+        "for p in os.listdir('/proc'):\n"
+        "    try:\n"
+        "        stat = open(f'/proc/{p}/stat').read().split()\n"
+        "    except (OSError, NotADirectoryError):\n"
+        "        continue\n"
+        "    if p.isdigit() and stat[3] == str(os.getpid()):\n"
+        "        kids.append(p)\n"
+        "torch = sys.modules.get('torch')\n"
+        "print(threading.active_count(), len(kids),\n"
+        "      torch is not None and torch.cuda.is_initialized())\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["1", "0", "False"]

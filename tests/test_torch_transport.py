@@ -787,14 +787,16 @@ def test_errors_keep_the_jax_bases():
 
 
 def test_the_package_holds_the_socket_half_alone():
-    """The shared-memory ring, its channel, the worker client and fault
-    injection are later slices: nothing of them is exported or stubbed."""
+    """The shared-memory ring, its channel and fault injection are later
+    slices: nothing of them is exported or stubbed. The worker client
+    (over the socket channel) is the package's."""
     root = pathlib.Path(P.__file__).parent
     assert sorted(p.name for p in root.glob("*.py")) == [
-        "__init__.py", "channel.py", "codec.py", "errors.py", "framing.py"]
-    for name in ("ShmChannel", "ShmArena", "ArenaSink",
-                 "ShardWorkerClient", "FaultSpec"):
+        "__init__.py", "channel.py", "client.py", "codec.py", "errors.py",
+        "framing.py"]
+    for name in ("ShmChannel", "ShmArena", "ArenaSink", "FaultSpec"):
         assert not hasattr(P, name)
+    assert "ShardWorkerClient" in P.__all__
     assert set(P.__all__) <= set(J.__all__)
     assert P.HAVE_MSGPACK == J.HAVE_MSGPACK
 
